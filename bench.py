@@ -20,8 +20,7 @@ import time
 import numpy as np
 
 
-def _build_problem(m_basis, n_particles, n_steps, seed=1,
-                   pallas_basis=False):
+def _build_problem(m_basis, n_particles, n_steps, seed=1):
     import jax
     import jax.numpy as jnp
 
@@ -45,8 +44,7 @@ def _build_problem(m_basis, n_particles, n_steps, seed=1,
     )
     potential = ScalarPotentialBasis(hypercube_basis(m_basis, data.LL))
     center = jnp.asarray(domain_center(data.LL), jnp.float32)
-    model = make_mag3d_model(potential, center=center,
-                             use_pallas_basis=pallas_basis)
+    model = make_mag3d_model(potential, center=center)
     k = linear_plus_se_spectral(
         jnp.asarray(np.sqrt(potential.basis.eigenvalues), jnp.float32),
         theta[0], theta[1], theta[2], 3,
@@ -56,7 +54,7 @@ def _build_problem(m_basis, n_particles, n_steps, seed=1,
 
 
 def bench_rbpf(m_basis, n_particles, n_steps, repeats=3,
-               pallas_basis=False, cov_dtype="float32",
+               cov_dtype="float32",
                symmetrize=False, ess_threshold=1.0, kf_kernel="xla",
                lowrank_period=8, store_trajectories=True):
     import jax
@@ -65,7 +63,7 @@ def bench_rbpf(m_basis, n_particles, n_steps, repeats=3,
     from rbslam_tpu.engines import RBPFConfig, run_rbpf
 
     data, model, potential, k, Q, R = _build_problem(
-        m_basis, n_particles, n_steps, pallas_basis=pallas_basis
+        m_basis, n_particles, n_steps
     )
     cfg = RBPFConfig(n_particles=n_particles, resampling="systematic",
                      cov_dtype=cov_dtype,
@@ -294,23 +292,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--particles", type=int, default=16384)
-    # m = 125 makes n_lin = 3 + m = 128 — exactly one lane tile, so the
-    # covariance layout carries zero padding (picking MXU/VPU-friendly
-    # model dims is the TPU-native move; m=128 would pad n_lin 131->256)
     ap.add_argument("--basis", type=int, default=125)
     ap.add_argument("--steps", type=int, default=192)
-    # measured fastest on v5e (RESULTS.md): XLA path + bf16 covariance
-    # + closed-form small-ny algebra
     ap.add_argument("--cov-dtype", default="bfloat16",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--engine", default="rbpf", choices=["rbpf", "pf"],
                     help="pf = gridded terrain PF (1M-particle path)")
-    ap.add_argument("--pallas-basis", dest="pallas_basis",
-                    action="store_true", default=True,
-                    help="Pallas fused basis-eval kernel (default on; "
-                         "measured +4%% over the jnp basis path)")
-    ap.add_argument("--no-pallas-basis", dest="pallas_basis",
-                    action="store_false")
     ap.add_argument("--symmetrize", action="store_true",
                     help="re-symmetrize P every step (reference filter "
                          "does not; costs an extra HBM pass)")
@@ -319,20 +306,16 @@ def main():
                          "the reference semantics; <1 skips the P gather "
                          "on non-resampling steps)")
     ap.add_argument("--kf-kernel", default="lowrank",
-                    choices=["xla", "block_gather", "lowrank"],
-                    help="KF measurement-update kernel: xla einsum chain; "
-                         "block_gather = gather-fused blocked kernel (the "
-                         "resampling gather of P rides lookahead DMAs — "
-                         "one total HBM read+write of the covariance "
-                         "ensemble per step); lowrank (default; measured "
-                         "fastest, RESULTS.md r4) = factored carry "
+                    choices=["xla", "lowrank"],
+                    help="KF measurement update: xla einsum chain on the "
+                         "full P, or lowrank = factored carry "
                          "P = P_base - Wt'Wt, ny rows written per step "
                          "(kernels/kf_update.py)")
     ap.add_argument("--lowrank-period", type=int, default=8,
                     help="rebase period r for --kf-kernel lowrank")
     ap.add_argument("--profile", default=None, metavar="LOGDIR",
                     help="capture a jax.profiler trace of the timed "
-                         "region to LOGDIR (view with XProf)")
+                         "region to LOGDIR")
     ap.add_argument("--skip-pf", action="store_true",
                     help="skip the terrain-PF regression line (faster "
                          "iteration when tuning the RBPF kernel)")
@@ -374,9 +357,8 @@ def main():
     else:
         ctx = contextlib.nullcontext()
     with ctx:
-        throughput, elapsed, T = bench_rbpf(
+        throughput, _, T = bench_rbpf(
             m_basis, n_particles, n_steps,
-            pallas_basis=args.pallas_basis,
             cov_dtype=args.cov_dtype, symmetrize=args.symmetrize,
             ess_threshold=args.ess, kf_kernel=args.kf_kernel,
             lowrank_period=args.lowrank_period,
@@ -387,30 +369,12 @@ def main():
     base_pp = numpy_baseline_best(m_basis, min(n_particles, 64))
     baseline_throughput = 1.0 / base_pp
 
-    # HBM roofline fraction of the RBPF step: the information-theoretic
-    # minimum traffic is one read + one write of the covariance ensemble
-    # per step (src/particleFilter.m:104-204 semantics); achieved
-    # fraction = min-bytes/step / (step time x peak BW). v5e: 819 GB/s.
-    n_lin_pad = m_basis + 3
-    if args.kf_kernel in ("block_gather", "lowrank"):
-        n_lin_pad = ((n_lin_pad + 127) // 128) * 128
-    itemsize = 2 if args.cov_dtype == "bfloat16" else 4
-    min_bytes = 2 * n_particles * n_lin_pad * n_lin_pad * itemsize
-    step_s = elapsed / T
-    hbm_frac = (min_bytes / step_s) / 819e9
-
     # regression-track the 1M-particle terrain PF (the no-covariance
-    # north-star scaling path) alongside the flagship metric; keep the
-    # RBPF line LAST (the driver parses the final JSON line)
-    extras = {
-        "rbpf_hbm_roofline_fraction": round(hbm_frac, 3),
-        "rbpf_step_ms": round(step_s * 1e3, 3),
-    }
+    # scaling path) alongside the flagship metric; keep the RBPF line
+    # LAST (the final JSON line is the headline)
     if not args.skip_pf:
         n_pf = 4096 if args.quick else 1_048_576
         pf_throughput, _ = bench_pf(n_pf, 32 if args.quick else 128)
-        extras["terrain_pf_particle_steps_per_s"] = round(pf_throughput, 1)
-        extras["terrain_pf_n_particles"] = n_pf
         print(
             json.dumps(
                 {
@@ -425,14 +389,13 @@ def main():
         )
     if not (args.skip_extras or args.quick):
         # reference-scale rows (VERDICT r4 #1/#3): the flagship accuracy
-        # shape nl=512 (m=509+3, exactly 4 lane tiles) in f32 on the
-        # lowrank kernel path, and the info-form smoother at N_P=100,
-        # nl=515, woodbury — the paper's contribution
+        # shape nl=512 (m=509+3) in f32 on the factored carry, and the
+        # info-form smoother at N_P=100, nl=515, woodbury — the paper's
+        # contribution
         ref_tp, _, Tr = bench_rbpf(
-            509, 4096, 192, pallas_basis=True, cov_dtype="float32",
+            509, 4096, 192, cov_dtype="float32",
             symmetrize=False, kf_kernel="lowrank",
         )
-        extras["rbpf_refscale_particle_steps_per_s"] = round(ref_tp, 1)
         print(json.dumps({
             "metric": (
                 f"rbpf_dense_mag_particle_steps_per_s"
@@ -443,16 +406,11 @@ def main():
             "vs_baseline": None,
         }))
         # bf16 factored carry at reference scale: rounds P only at
-        # rebases, so unlike the per-step paths it is STABLE at
-        # n_lin=512 — accuracy-validated over 20 flagship seeds (median
-        # RMSE 0.235 m <= the 0.3 m reference bound, zero NaN;
-        # RESULTS.md r5) and 1.8x the f32 row
+        # rebases, so unlike the per-step paths it is stable at
+        # n_lin=512 (RESULTS.md)
         ref16_tp, _, _ = bench_rbpf(
-            509, 4096, 192, pallas_basis=True, cov_dtype="bfloat16",
+            509, 4096, 192, cov_dtype="bfloat16",
             symmetrize=False, kf_kernel="lowrank",
-        )
-        extras["rbpf_refscale_bf16_particle_steps_per_s"] = round(
-            ref16_tp, 1
         )
         print(json.dumps({
             "metric": (
@@ -465,7 +423,6 @@ def main():
             "vs_baseline": None,
         }))
         ps_tp, _, Ts = bench_rbps_info()
-        extras["rbps_info_particle_steps_per_s"] = round(ps_tp, 1)
         print(json.dumps({
             "metric": (
                 f"rbps_info_particle_steps_per_s"
@@ -475,16 +432,15 @@ def main():
             "unit": "particle-steps/s",
             "vs_baseline": None,
         }))
-        # large-ensemble row (VERDICT r4 #7): N_P=131072 at nl=128 fits
-        # one chip with the factored carry once the [T, N, dn] history
-        # tensors are skipped (store_trajectories=False; ancestors still
-        # returned for offline reconstruction)
+        # large-ensemble row (VERDICT r4 #7): N_P=131072 at nl=128 with
+        # the factored carry and the [T, N, dn] history tensors skipped
+        # (store_trajectories=False; ancestors still returned for
+        # offline reconstruction)
         big_tp, _, Tb = bench_rbpf(
-            125, 131072, 192, pallas_basis=True, cov_dtype="bfloat16",
+            125, 131072, 192, cov_dtype="bfloat16",
             symmetrize=False, kf_kernel="lowrank",
             store_trajectories=False,
         )
-        extras["rbpf_131k_particle_steps_per_s"] = round(big_tp, 1)
         print(json.dumps({
             "metric": (
                 f"rbpf_dense_mag_particle_steps_per_s"
@@ -495,27 +451,17 @@ def main():
             "unit": "particle-steps/s",
             "vs_baseline": None,
         }))
-    try:
-        with open("BENCH_EXTRA.json", "w") as f:
-            json.dump(extras, f, indent=1)
-    except OSError:
-        pass
-
     print(
         json.dumps(
             {
                 "metric": (
                     f"rbpf_dense_mag_particle_steps_per_s"
                     f"[N_P={n_particles},m={m_basis}+3,T={T}"
-                    + (",gather-kf" if args.kf_kernel == "block_gather"
-                       else "")
                     + (f",lowrank-kf-r{args.lowrank_period}"
                        if args.kf_kernel == "lowrank" else "")
-                    + (",pallas-basis" if args.pallas_basis else "")
                     + (",bf16-cov" if args.cov_dtype == "bfloat16" else "")
                     + ("" if args.symmetrize else ",no-sym")
                     + (f",ess={args.ess}" if args.ess < 1.0 else "")
-                    + f",hbm={hbm_frac:.2f}"
                     + "]"
                 ),
                 "value": round(throughput, 1),

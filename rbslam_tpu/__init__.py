@@ -1,10 +1,10 @@
-"""rbslam_tpu — TPU-native Rao-Blackwellized particle SLAM framework.
+"""rbslam_tpu — Rao-Blackwellized particle SLAM framework in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference MATLAB implementation of Kok, Solin & Schön (2024),
 "Rao-Blackwellized Particle Smoothing for Simultaneous Localization and
-Mapping" (manonkok/Rao-Blackwellized-SLAM-smoothing) — redesigned
-TPU-first:
+Mapping" (manonkok/Rao-Blackwellized-SLAM-smoothing) — redesigned for
+an accelerator (one NVIDIA GPU):
 
 - `lax.scan` over the time recursion, `vmap` over the particle ensemble
   (replacing the reference's per-particle MATLAB for-loops,
@@ -14,7 +14,7 @@ TPU-first:
 - ancestor-index bookkeeping with one post-scan trajectory
   reconstruction (replacing the O(T^2 N_P) in-loop history shuffle at
   src/particleFilter.m:117-118),
-- batched per-particle Kalman/information-form updates as large MXU
+- batched per-particle Kalman/information-form updates as large batched
   matmuls, shardable over a (particle, map) device mesh.
 
 Subpackages

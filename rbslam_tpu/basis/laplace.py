@@ -11,12 +11,8 @@ the same math as the reference (tools/domain_cartesian_dx.m):
 Index selection (over-generate a grid of ``ceil(m^(1/d) * L/min(L))`` per
 dimension, keep the m smallest eigenvalues, :33-43) happens **at trace
 time with numpy** — the index set is static data baked into the jitted
-program, so the TPU only ever sees fixed-shape sin/cos product evaluations
-that XLA fuses into the downstream projection matmuls.
-
-TPU notes: the evaluation is O(n·m·d) transcendentals (VPU-bound) followed
-by products — kept as one fused expression so XLA tiles it; a Pallas
-fusion of basis-eval + projection lives in `rbslam_tpu.kernels`.
+program, so the device only ever sees fixed-shape sin/cos product
+evaluations, kept as one elementwise expression that XLA fuses.
 """
 
 from __future__ import annotations

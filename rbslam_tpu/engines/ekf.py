@@ -92,7 +92,7 @@ def run_ekf_dense_batched(
     The sequential EKF wastes the chip on [n, n] x [3, n] products (n =
     6 + n_lin, up to 521); batching the MC repetitions of the reference's
     disturbance sweep (examples/slam-dense-mag/main.m:37-60) turns every
-    per-step product into a [B, n, n] batched MXU op — the whole nSim=20
+    per-step product into a [B, n, n] batched matmul — the whole nSim=20
     sweep costs about one sequential run. Returns EKFResult with a
     leading batch axis on every field.
     """

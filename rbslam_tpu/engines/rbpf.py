@@ -9,8 +9,7 @@ marginal innovation likelihood (:126-151), (3) log-sum-exp normalize
 (:163-204). Differences by design:
 
 - the three per-particle MATLAB loops become three batched/vmapped ops —
-  the KF update is one [N_P, ny, nLin] x [N_P, nLin, nLin] einsum chain
-  on the MXU;
+  the KF update is one [N_P, ny, nLin] x [N_P, nLin, nLin] einsum chain;
 - ancestor indices are *stored* and the trajectory tensor is
   reconstructed once after the scan, replacing the O(T^2 N_P) in-place
   history shuffle (:117-118);
@@ -48,15 +47,10 @@ class RBPFConfig(NamedTuple):
     jitter: float = 1e-3              # src/particleFilter.m:89
     joseph: bool = False
     store_trajectories: bool = True
-    # KF update kernel: "xla" (ops/kalman.py einsum chain),
-    # "block_gather" (Pallas blocked update with the resampling gather
-    # of P fused in via lookahead DMAs — one total HBM read + write of
-    # the covariance ensemble per step;
-    # kernels/kf_update.py::kf_update_block_gather), or "lowrank" (the
-    # factored carry P = P_base - Wt^T Wt that writes only ny factor
-    # rows per step; kernels/kf_update.py::kf_update_lowrank). Dense
-    # ny <= 3 only. Superseded variants (1pass/2pass/block) were
-    # measured slower and removed — NEGATIVE_RESULTS.md has the record.
+    # KF update: "xla" (ops/kalman.py einsum chain on the full P) or
+    # "lowrank" (the factored carry P = P_base - Wt^T Wt that writes only
+    # ny factor rows per step; kernels/kf_update.py::kf_update_lowrank).
+    # "lowrank" applies to dense models with ny <= 3.
     kf_kernel: str = "xla"
     # resample only when ESS <= ess_threshold * N, accumulating
     # log-weights in between; 1.0 = every step (reference semantics,
@@ -68,8 +62,8 @@ class RBPFConfig(NamedTuple):
     # see kernels/kf_update.py::kf_update_lowrank
     lowrank_period: int = 8
     # storage dtype for the per-particle covariance carry; "bfloat16"
-    # halves the dominant HBM traffic (contractions and the fused
-    # kernels still accumulate in f32). Fenced at n_lin > 256: the
+    # halves the dominant HBM traffic (contractions and the gather-CP
+    # kernel still accumulate in f32). Fenced at n_lin > 256: the
     # repeated rank-ny downdates accumulate bf16 rounding across T and
     # destabilize the *filter* weights at reference scale (measured NaN
     # at n_lin=515, RESULTS.md); set allow_bf16_large_nl to override.
@@ -84,9 +78,8 @@ class RBPFConfig(NamedTuple):
     dist_resampling: str = "replicated_cdf"
     # re-symmetrize P after every downdate (an extra HBM pass; the
     # reference filter does not, src/particleFilter.m:198 — fp drift is
-    # surfaced by the chol_retries counter). XLA path only: the Pallas
-    # kernel paths never symmetrize (their one-HBM-pass contract has no
-    # room for the extra transpose pass) and ignore this flag.
+    # surfaced by the chol_retries counter). XLA path only: the factored
+    # carry keeps P_base symmetric by construction and ignores this flag.
     symmetrize_cov: bool = True
 
 
@@ -156,27 +149,12 @@ def reconstruct_trajectories(xn_hist, ancestors):
     return jnp.take_along_axis(xn_hist, idx_full[:, :, None], axis=1)
 
 
-def _pad_cols(C, n_cols):
-    pad = n_cols - C.shape[-1]
-    if pad:
-        C = jnp.pad(C, ((0, 0), (0, 0), (0, pad)))
-    return C
-
-
-def _jacobian_batch(model, xn):
-    """Whole-ensemble measurement Jacobian: the fused-kernel hook when
-    the model provides one, else vmap of the per-particle Jacobian."""
-    if getattr(model, "meas_jacobian_batch", None) is not None:
-        return model.meas_jacobian_batch(xn)
-    return jax.vmap(model.meas_jacobian)(xn)
-
-
 def _measurement_update(model, xn, xl, P, y_t, R, mask_t, jitter, joseph,
                         symmetrize_out=True):
     """Vmapped weight + KF update for one time step; returns
     (xl', P', logw, retries)."""
     if isinstance(model, DenseModel):
-        C = _jacobian_batch(model, xn)                   # [P, ny, nl]
+        C = jax.vmap(model.meas_jacobian)(xn)            # [P, ny, nl]
         xl_new, P_new, logw, retried = kalman_update_dense_batched(
             C, P, xl, y_t, R, jitter, joseph, symmetrize_out
         )
@@ -206,10 +184,10 @@ def run_rbpf(
     """Run the RBPF (see :func:`_run_rbpf` for the full contract).
 
     This thin eager wrapper validates, on CONCRETE inputs only, a
-    contract the jitted body cannot check: the Pallas kernel paths
-    (kf_kernel != "xla") have no observation-mask
-    support, so NaN-masked dense measurements (measurement.m:56
-    semantics) would silently enter the update as y=0 observations.
+    contract the jitted body cannot check: the factored carry
+    (kf_kernel="lowrank") has no observation-mask support, so NaN-masked
+    dense measurements (measurement.m:56 semantics) would silently enter
+    the update as y=0 observations.
     When y/mask are tracers (call sites inside an outer jit) the check
     is skipped — those callers own their masks.
     """
@@ -218,23 +196,24 @@ def run_rbpf(
         if mask is not None and not isinstance(mask, jax.core.Tracer):
             if not bool(jnp.all(jnp.asarray(mask) != 0)):
                 raise ValueError(
-                    "Pallas KF kernel paths do not support masked "
+                    "kf_kernel='lowrank' does not support masked "
                     "observations; use kf_kernel='xla' (ops/kalman "
                     "masked path) for NaN/masked y"
                 )
         elif mask is None and not bool(jnp.all(jnp.isfinite(y))):
             raise ValueError(
-                "y contains NaN but a Pallas KF kernel path is "
+                "y contains NaN but kf_kernel='lowrank' is "
                 "selected; NaN rows are only masked correctly on "
                 "kf_kernel='xla' (ops/kalman.kalman_update_masked)"
             )
     if isinstance(model, SparseModel):
-        # TPU f32 matmuls default to bf16-pass precision; the sparse/EKF
-        # masked algebra (noise_var=0.1^2 against initMapVar=4^2,
-        # pfslam.m:78-93) is too ill-conditioned for that — measured NaN
-        # weights mid-run at reference scale on TPU while CPU (true f32)
-        # is fine. The sparse shapes are tiny, so full-f32 passes cost
-        # nothing; the dense path keeps the fast default.
+        # GPU f32 matmuls may run in TF32 (about three decimal digits)
+        # at the default precision; the sparse/EKF masked algebra
+        # (noise_var=0.1^2 against initMapVar=4^2, pfslam.m:78-93) is too
+        # ill-conditioned for reduced-precision passes (NaN weights
+        # mid-run at reference scale). The sparse shapes are tiny, so
+        # full-f32 products cost nothing; the dense path keeps the
+        # default.
         with jax.default_matmul_precision("highest"):
             return _run_rbpf(
                 key, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
@@ -279,16 +258,15 @@ def _run_rbpf(
     distributed, resampling indices come from the explicit-collective
     sharded resampler (parallel/resampling.py), and the crossing-particle
     state exchange rides XLA's partitioned gather. Results equal the
-    unsharded run (tests/test_sharding.py). The Pallas kernel paths
-    (kf_kernel != "xla") are single-device and rejected
-    under a mesh.
+    unsharded run (tests/test_sharding.py). The factored carry
+    (kf_kernel="lowrank") is single-device and rejected under a mesh.
     """
     n_p = config.n_particles
     T = y.shape[0]
     if mesh is not None:
         if config.kf_kernel != "xla":
             raise ValueError(
-                "Pallas KF kernels are single-device; use kf_kernel='xla' "
+                "kf_kernel='lowrank' is single-device; use kf_kernel='xla' "
                 "with mesh"
             )
         from ..parallel.mesh import particle_map_sharding, particle_sharding
@@ -313,7 +291,7 @@ def _run_rbpf(
             and index locally. GSPMD's inferred partition of the same
             `jnp.take` hits an involuntary-full-rematerialization (it
             replicates across BOTH mesh axes then repartitions —
-            spmd_partitioner warning in MULTICHIP_r04); this form pins
+            spmd_partitioner warning); this form pins
             the exchange to one particles-axis all_gather."""
             def inner(x_l, ai_l):
                 x_all = jax.lax.all_gather(
@@ -364,23 +342,17 @@ def _run_rbpf(
             return jnp.take(x, ai, axis=0)
 
         _take_P = _take_state
-    if config.kf_kernel not in ("xla", "block_gather", "lowrank"):
+    if config.kf_kernel not in ("xla", "lowrank"):
         raise ValueError(
-            f"unknown kf_kernel {config.kf_kernel!r}: expected 'xla', "
-            "'block_gather' or 'lowrank' (superseded variants were "
-            "removed — NEGATIVE_RESULTS.md)"
+            f"unknown kf_kernel {config.kf_kernel!r}: expected 'xla' or "
+            "'lowrank'"
         )
-    block_gather = (
-        config.kf_kernel == "block_gather"
-        and isinstance(model, DenseModel)
-        and model.ny <= 3
-    )
     lowrank = (
         config.kf_kernel == "lowrank"
         and isinstance(model, DenseModel)
         and model.ny <= 3
         # T == 1 has zero scan steps: route through the generic scan
-        # (which never invokes a kernel at length 0) instead of the
+        # (which never runs an update at length 0) instead of the
         # nested-period machinery, whose empty outs_parts cannot concat
         and T > 1
     )
@@ -402,12 +374,10 @@ def _run_rbpf(
                 and not lowrank):
             # the per-step paths round the FULL covariance to bf16 every
             # step: the rounding accumulates over T and produces NaN
-            # weights at reference scale (measured at n_lin=515,
-            # RESULTS.md). The lowrank factored carry is exempt — it
-            # rounds P only at rebases (T/r times, factor rows exact
-            # within a period) and is measured stable AND accurate at
-            # n_lin=512/T=192 (20-seed flagship validation median
-            # 0.235 m, zero NaN — RESULTS.md r5).
+            # weights at reference scale (seen at n_lin=515, RESULTS.md).
+            # The lowrank factored carry is exempt — it rounds P only at
+            # rebases (T/r times, factor rows exact within a period) and
+            # stays accurate at n_lin=512/T=192 (RESULTS.md).
             raise ValueError(
                 f"cov_dtype='bfloat16' at n_lin={n_lin} > 256 destabilizes "
                 "the per-step filter paths (bf16 rounding of the "
@@ -418,33 +388,13 @@ def _run_rbpf(
                 "to override deliberately."
             )
         P0 = P0.astype(jnp.dtype(config.cov_dtype))
-    if block_gather or lowrank:
-        # Mosaic manual-DMA row slices need lane-tile (128) alignment.
-        # NOTE cost model: only the last (lane) axis physically pads to a
-        # 128 multiple for free; the second-to-last axis sublane-pads to 8,
-        # so padding nl on BOTH axes of P is real extra HBM traffic when
-        # nl is far from a 128 multiple (e.g. 515 -> 640 is ~+24% on the
-        # sublane axis). Pick nl near a 128 multiple for the fused path.
-        # Carry the linear state zero-padded through the scan and slice
-        # at the end.
-        pad = (-n_lin) % 128
-        if pad:
-            xl0 = jnp.pad(xl0, ((0, 0), (0, pad)))
-            P0 = jnp.pad(P0, ((0, 0), (0, pad), (0, pad)))
 
     # --- step t = 0: no prediction (src/particleFilter.m:103) ---
     key, k0 = jax.random.split(key)
-    if block_gather or lowrank:
-        C0 = _pad_cols(_jacobian_batch(model, xn0), P0.shape[-1])
-        xl1, P1, logw1, retried0_b = kalman_update_dense_batched(
-            C0, P0, xl0, y[0], R, config.jitter, config.joseph
-        )
-        retries0 = jnp.sum(retried0_b)
-    else:
-        xl1, P1, logw1, retries0 = _measurement_update(
-            model, xn0, xl0, P0, y[0], R, mask[0], config.jitter,
-            config.joseph, config.symmetrize_cov,
-        )
+    xl1, P1, logw1, retries0 = _measurement_update(
+        model, xn0, xl0, P0, y[0], R, mask[0], config.jitter,
+        config.joseph, config.symmetrize_cov,
+    )
     w1, logw1n, logz0 = logsumexp_normalize(logw1)
 
     def step(carry, inputs):
@@ -479,29 +429,20 @@ def _run_rbpf(
                 lambda kk, x: model.dynamics(kk, x, u, dt_t, Q_t)
             )(dyn_keys, xn_anc)
 
-        if block_gather:
-            from ..kernels.kf_update import kf_update_block_gather
-
-            C = _pad_cols(_jacobian_batch(model, xn_new), P.shape[-1])
-            xl_new, P_new, logw, retried_b = kf_update_block_gather(
-                ai, C, xl_anc, P, y_t, R, config.jitter
-            )
-            retried = jnp.sum(retried_b)
+        if do_res is None:
+            P_anc = _take_P(P, ai)
         else:
-            if do_res is None:
-                P_anc = _take_P(P, ai)
-            else:
-                # ESS-adaptive: the P gather is the dominant HBM cost of
-                # a step — execute it only on resampling steps (lax.cond
-                # runs a single branch, unlike a select)
-                P_anc = jax.lax.cond(
-                    do_res, lambda p: _take_P(p, ai),
-                    lambda p: p, P,
-                )
-            xl_new, P_new, logw, retried = _measurement_update(
-                model, xn_new, xl_anc, P_anc, y_t, R, mask_t,
-                config.jitter, config.joseph, config.symmetrize_cov,
+            # ESS-adaptive: the P gather is the dominant HBM cost of a
+            # step — execute it only on resampling steps (lax.cond runs a
+            # single branch, unlike a select)
+            P_anc = jax.lax.cond(
+                do_res, lambda p: _take_P(p, ai),
+                lambda p: p, P,
             )
+        xl_new, P_new, logw, retried = _measurement_update(
+            model, xn_new, xl_anc, P_anc, y_t, R, mask_t,
+            config.jitter, config.joseph, config.symmetrize_cov,
+        )
         logw = logw_prev + jnp.log(n_p) + logw  # accumulate (no-op at thr=1)
         w_new, logw_nn, logz = logsumexp_normalize(logw)
         xn_new, xl_new, P_new, logw_nn = constrain(
@@ -530,14 +471,13 @@ def _run_rbpf(
         # read-only), materializes P_base' = P_base[bidx] - Wt^T Wt once,
         # and resets the factor. The T-1 steps split into n_super full
         # periods plus one shorter remainder scan (same inner body) —
-        # no per-step validity masking, no lax.cond around the 512 MB
-        # carry. Semantics identical to the block_gather path
-        # (src/particleFilter.m:104-204), tested in tests/test_kernels.py.
+        # no per-step validity masking, no lax.cond around the large
+        # carry. Semantics identical to the xla path
+        # (src/particleFilter.m:104-204), tested in tests/test_fused_kf.py.
         from ..kernels.kf_update import kf_rebase, kf_update_lowrank
 
         r = config.lowrank_period
         ny = model.ny
-        nl_pad = P1.shape[-1]
         rw = ny * r
         n_super = (T - 1) // r
         rem = (T - 1) - n_super * r
@@ -557,8 +497,8 @@ def _run_rbpf(
                 else:
                     # ESS-gated: a no-resample step keeps ai = identity,
                     # composing cleanly with the carried base indices
-                    # (the kernel's P_base gather just re-reads each
-                    # particle's own row); all state gathers are skipped
+                    # (the P_base gather just re-reads each particle's
+                    # own row); all state gathers are skipped
                     # inside the single-branch cond
                     ess_prev = ess_from_logw(logw_n)
                     do_res = ess_prev <= config.ess_threshold * n_p
@@ -582,29 +522,17 @@ def _run_rbpf(
                     xn_new = jax.vmap(
                         lambda kk, x: model.dynamics(kk, x, u, dt_t, Q_t)
                     )(dyn_keys, xn_a)
-                if model.meas_jacobian_batch_rows is not None:
-                    # one fused kernel emits the full Jacobian directly
-                    # in the [N, ny, nl] rows layout and storage dtype
-                    # the lowrank kernel consumes — no transpose/cast
-                    C = model.meas_jacobian_batch_rows(
-                        xn_new, nl_pad, P_base.dtype
-                    )
-                else:
-                    C = _pad_cols(
-                        _jacobian_batch(model, xn_new), nl_pad
-                    ).astype(P_base.dtype)
+                C = jax.vmap(model.meas_jacobian)(xn_new).astype(
+                    P_base.dtype
+                )
                 xl_new, wnew, logw, retried_b = kf_update_lowrank(
                     bidx_n, C, xl_a, Wt_g, P_base, y_t, R, config.jitter
                 )
                 # place the new factor rows at [ny*phase, ny*phase+ny):
-                # a dynamic_update_slice at a 3-row sublane-UNALIGNED
-                # offset of the (8,128)-tiled slab lowers to a full
-                # copy + select (~0.7 ms/step measured in the r4 trace);
                 # the target rows are always still zero (each phase owns
                 # distinct rows, gathers permute particles not rows), so
                 # an add of E(phase) @ wnew is exact and fuses with the
-                # slab handling (measured fastest of DUS / where+static-
-                # gather / einsum-placement at bench scale)
+                # slab handling instead of a dynamic_update_slice copy
                 rw_here = Wt_g.shape[1]
                 E = (
                     jnp.arange(rw_here)[:, None]
@@ -635,11 +563,7 @@ def _run_rbpf(
 
         def run_period(carry, inp_r, width):
             xn, xl, P_base, logw_n, retries = carry
-            # Mosaic tiling of the kernel's (block, rw, nl) VMEM factor
-            # block needs a sublane-aligned rw (multiple of 8); extra
-            # zero rows contribute nothing
-            width = -(-width // 8) * 8
-            Wt0 = jnp.zeros((n_p, width, nl_pad), P_base.dtype)
+            Wt0 = jnp.zeros((n_p, width, n_lin), P_base.dtype)
             bidx0 = jnp.arange(n_p, dtype=jnp.int32)
             (xn, xl, Wt, bidx, logw_n, retries), outs = jax.lax.scan(
                 lowrank_inner(P_base),
@@ -651,9 +575,6 @@ def _run_rbpf(
         carry = (xn0c, xl1, P1, logw1n, retries0)
         outs_parts = []
         if n_super > 0:
-            # (tried: unrolling this outer scan as a Python loop to kill
-            # the per-period P_base carry copy seen in the trace — no
-            # measurable gain, 5x compile time; NEGATIVE_RESULTS.md)
             nmain = n_super * r
             phases = jnp.broadcast_to(
                 jnp.arange(r, dtype=jnp.int32), (n_super, r)
@@ -711,21 +632,17 @@ def _run_rbpf(
         xn_traj = reconstruct_trajectories(xn_hist_full, ancestors)
     else:
         # store_trajectories=False: the [T, N_P, dn] history tensors are
-        # the marginal memory cost at large N_P (e.g. N_P=131072:
-        # ~3 GB of history+reconstruction buffers); production-scale
+        # the marginal memory cost at large N_P; production-scale
         # runs that only need the per-step estimates skip them.
         # Ancestors are still returned — reconstruct offline if needed.
         xn_hist_full = jnp.zeros((0,), y.dtype)
         xn_traj = jnp.zeros((0,), y.dtype)
 
-    if (block_gather or lowrank) and xl_f.shape[-1] != n_lin:
-        xl_f = xl_f[..., :n_lin]
-        P_f = P_f[..., :n_lin, :n_lin]
     if config.store_trajectories:
         P_f = P_f.astype(jnp.float32)
     # else: Result.P stays in the covariance storage dtype — the f32
     # materialization of the full [N, nl, nl] ensemble is another
-    # N*nl*nl*4 bytes of peak HBM (8.6 GB at N_P=131072), exactly what
+    # N*nl*nl*4 bytes of peak HBM, exactly what
     # the large-ensemble no-history mode exists to avoid; the summary
     # outputs below are f32 regardless
     w_f = jnp.exp(logw_f)

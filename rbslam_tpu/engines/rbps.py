@@ -10,7 +10,7 @@ previous sweep (:92-96,110-113) and its ancestor index is sampled from
 where the future-measurement likelihood evaluates the reference
 trajectory's future observations against each particle's map posterior.
 
-TPU-native structure:
+Device-oriented structure:
 
 - each sweep is ONE jitted `lax.scan` over time with everything vmapped
   over particles; the per-sweep Python loop re-invokes the same compiled
@@ -49,9 +49,7 @@ from ..ops.resampling import resample_indices, sample_categorical
 from .rbpf import (
     _broadcast_time,
     _init_linear,
-    _jacobian_batch,
     _measurement_update,
-    _pad_cols,
     reconstruct_trajectories,
 )
 
@@ -70,10 +68,9 @@ class RBPSConfig(NamedTuple):
     # W = (Imat+ImatAdd)^-1 and its log-det via exact rank-ny
     # updates/downdates (O(nl^2 ny) per particle-step — no factorization
     # in the hot loop); "cholesky" factorizes Imat+ImatAdd per particle
-    # per step (the reference's structure, O(nl^3); XLA's batched
-    # cholesky/triangular_solve lower poorly on TPU, measured 16 ms/step
-    # at N=100, nl=515). Woodbury measured 1.27x at reference scale with
-    # matching sampled trajectories (RESULTS.md; equivalence gate
+    # per step (the reference's structure, O(nl^3) batched cholesky +
+    # triangular solves). Both forms sample matching trajectories
+    # (equivalence gate
     # tests/test_rbps.py::test_woodbury_matches_cholesky_form).
     ancestor_form: str = "woodbury"
     # precompute the suffix information pairs for ALL t as one reverse
@@ -222,8 +219,8 @@ def _cpf_as_sweep(
     nl_c = xl0.shape[-1]   # carried linear dim
 
     if dense and not is_first:
-        C_ref = _jacobian_batch(model, xnk)     # [T, ny, n_lin] (:119-121)
-        C_stack = _pad_cols(C_ref, nl_c).reshape(T * ny, nl_c)
+        C_ref = jax.vmap(model.meas_jacobian)(xnk)     # [T, ny, n_lin] (:119-121)
+        C_stack = C_ref.reshape(T * ny, nl_c)
         y_stack = jnp.nan_to_num(y).reshape(T * ny)
     else:
         C_stack = None
@@ -438,8 +435,8 @@ def run_rbps(
         mask = jnp.isfinite(y).astype(y.dtype)
     if isinstance(model, SparseModel):
         # full-f32 matmul passes for the ill-conditioned sparse/EKF
-        # algebra — see run_rbpf's SparseModel note (TPU bf16-pass
-        # default produced NaN weights at reference scale)
+        # algebra — see run_rbpf's SparseModel note (reduced-precision
+        # TF32 passes can produce NaN weights at reference scale)
         with jax.default_matmul_precision("highest"):
             return _run_sweeps(
                 _cpf_as_sweep, key, model, dx, y, mask, x0_nonlin,

@@ -44,7 +44,6 @@ from ..ops.resampling import resample_indices, sample_categorical
 from .rbpf import (
     _broadcast_time,
     _init_linear,
-    _jacobian_batch,
     reconstruct_trajectories,
 )
 from .rbps import RBPSConfig, RBPSResult, _dyn_log_weights
@@ -82,9 +81,9 @@ def _woodbury_rank_ny(W, hldM, U, sign: float, jitter):
         hldM' = hldM + 0.5 log|Bpos|.
 
     U: [N, nl, ny]. This is the O(nl^2 ny) alternative to re-factorizing
-    Imat+ImatAdd per step (RBPSConfig.ancestor_form="woodbury"); XLA's
-    batched nl^3 cholesky + triangular solve cost ~16 ms/step at N=100,
-    nl=515 on v5e, the rank-ny path ~4 ms. Returns (W', hldM', retried).
+    Imat+ImatAdd per step (RBPSConfig.ancestor_form="woodbury") with
+    XLA's batched nl^3 cholesky + triangular solve. Returns (W', hldM',
+    retried).
     """
     from ..ops.kalman import (
         _chol_small_batched,
@@ -250,7 +249,7 @@ def _info_sweep(
 
     precomp = config.suffix_precompute and not is_first
     if not is_first:
-        C_ref = _jacobian_batch(model, xnk)      # [T, ny, n_lin]
+        C_ref = jax.vmap(model.meas_jacobian)(xnk)      # [T, ny, n_lin]
         # whole-trajectory suffix pair (:132-146)
         terms_iv = jnp.einsum("tik,ij,tj->tk", C_ref, Rinv, y)
         ivec_add0 = jnp.sum(terms_iv, axis=0)
@@ -281,7 +280,7 @@ def _info_sweep(
     RiT = jnp.linalg.inv(jnp.linalg.cholesky(R)).T     # U = C' L_R^-T
 
     def meas_all(xn, xl, P, ivec, Imat, hldp, y_t):
-        C = _jacobian_batch(model, xn)
+        C = jax.vmap(model.meas_jacobian)(xn)
         out = _kf_info_update_batched(
             C, P, xl, ivec, Imat, hldp, y_t, R, Rinv, half_logdet_R,
             config.jitter, config.joseph, config.symmetrize_cov,
@@ -308,7 +307,7 @@ def _info_sweep(
             # pin the TWO-matrix factorization replicated: with the map
             # sharding it inherits from Imat_add0, the blocked Cholesky's
             # internal gathers are the ops GSPMD could only partition by
-            # involuntary full rematerialization (MULTICHIP_r04 warning);
+            # involuntary full rematerialization (spmd_partitioner warning);
             # at [2, nl, nl] the replicated factorization is negligible
             from jax.sharding import NamedSharding, PartitionSpec
 
@@ -323,14 +322,14 @@ def _info_sweep(
         # diagonal via masked reduce, not jnp.diagonal: the diagonal
         # gather of the map-axis-sharded [2, nl, nl] factor is the
         # f32[2,nl] gather GSPMD could only partition by involuntary
-        # full rematerialization (MULTICHIP_r04 warning)
+        # full rematerialization (spmd_partitioner warning)
         diag2 = jnp.sum(L2 * eye_nl[None], axis=-1)        # [2, nl]
         hld2 = jnp.sum(jnp.log(diag2), -1)
         # broadcast the two solutions over the ensemble with a SELECT,
         # not a gather: a take from the [2, nl, nl] map-sharded source
         # into the particles-sharded ensemble is the gather GSPMD could
         # only partition by involuntary full rematerialization
-        # (MULTICHIP_r04 spmd_partitioner warning); the select
+        # (spmd_partitioner warning); the select
         # partitions trivially on both mesh axes
         is_ref = (jnp.arange(n_p) == n_p - 1)
         Imat1 = jnp.where(is_ref[:, None, None], W2[1][None], W2[0][None])

@@ -12,7 +12,7 @@ workload. Reference: tools/gp_scalar_potential_fast.m —
           + n/2 log 2pi,    L = chol(Phi'Phi + diag(sigma2/k))
 - posterior solve through the same Cholesky (:190-207).
 
-TPU-native differences: the NLL is one jitted function of the
+Differences: the NLL is one jitted function of the
 log-hyperparameters and the gradient comes from autodiff (the reference
 hand-derives it, :257-290); the optimizer is scipy L-BFGS on host (this
 is offline fitting, matching `fminunc` usage :148-170), with the m^3

@@ -1,17 +1,12 @@
-"""Pallas TPU kernels (dense RBPF hot path + basis evaluation)."""
+"""Hand-written kernels for the dense RBPF hot path (Pallas/Triton on CUDA)."""
 
-from .basis_eval import (
-    grad_basis_pallas,
-    mag3d_jacobian_pallas,
-    phi_basis_pallas,
-)
 from .kf_update import (
+    gather_cp,
+    gather_cp_reference,
     kf_rebase,
-    kf_update_block_gather,
     kf_update_lowrank,
 )
 
 __all__ = [
-    "grad_basis_pallas", "mag3d_jacobian_pallas", "phi_basis_pallas",
-    "kf_rebase", "kf_update_block_gather", "kf_update_lowrank",
+    "gather_cp", "gather_cp_reference", "kf_rebase", "kf_update_lowrank",
 ]

@@ -1,34 +1,30 @@
-"""Pallas TPU kernels for the RBPF hot loop: gather-fused blocked KF
-update and the low-rank factored update.
+"""Factored-carry KF update for the RBPF hot loop: P = P_base - Wt^T Wt.
 
-The RBPF hot loop moves the per-particle covariance tensor
-P [N, nl, nl] through HBM multiple times per step on the XLA path: the
-resampling gather (jnp.take), the innovation/gain contraction, and the
-covariance downdate (SURVEY §3.1 dominant cost; src/particleFilter.m:
-104-113,163-204). Two live kernel families cut that traffic:
+The KF covariance downdate is additive rank-ny per step
+(src/particleFilter.m:194-198):
 
-- ``kf_update_block_gather``: blocked update in which the resampling
-  gather of P rides per-particle lookahead DMAs — ONE total HBM read +
-  write of the covariance ensemble per step:
+    P_t = P_base - sum_tau U_tau S_tau^-1 U_tau^T = P_base - Wt^T Wt,
+    Wt rows at step tau: Y_tau = L_tau^-1 C_tau P_tau   (S = L L^T)
 
-      U  = P a C_i^T                  [nl, ny]
-      S  = C_i U + R                  [ny, ny]   (+ repair if not PD)
-      logw_i = -1/2 e'S^-1 e - 1/2 log|S| - ny/2 log 2pi
-      xl' = xl + U S^-1 e,   P' = P - U S^-1 U^T
+so the filter carries the FACTOR Wt [rw, nl] (rw = ny * rebase period)
+instead of P, and materializes P ("rebase") only every r steps. Per
+step the update reads the ancestor's P_base row (read-only between
+rebases, gathered by composed base indices and never rewritten), reads
+the small factor, and writes ny new factor rows.
 
-- ``kf_update_lowrank`` + ``kf_rebase``: the factored carry
-  P = P_base - Wt^T Wt. The KF downdate is additive rank-ny per step
-  (src/particleFilter.m:194-198), so the per-step kernel writes only
-  ny factor rows instead of nl x nl, and P_base is materialized once
-  per rebase period — the only path that can go BELOW the per-step
-  P copy floor.
+The per-step hot op is the gather-fused effective-CP contraction
 
-ny is restricted to 1..3 (covers every reference workload: radio ny=1,
-magnetic ny=3); larger ny falls back to ops/kalman.py. Superseded
-variants (per-particle manual-DMA 1-pass/2-pass kernels, the post-
-gather block kernel) were measured slower than these and removed —
-their numbers and the reasons live in NEGATIVE_RESULTS.md; the code is
-in git history (round 1-3).
+    CP[b] = C[b] (P_base[bidx[b]] - Wt[b]^T Wt[b])
+
+a memory-bound batched GEMV (ny <= 3 rows). On CUDA it runs as a
+Pallas/Triton kernel that streams each ancestor row straight from
+P_base; the plain version (:func:`gather_cp_reference`) materializes the
+gathered [N, nl, nl] tensor first and serves the CPU. The once-per-
+period rebase P_base' = P_base[bidx] - Wt^T Wt likewise has a Triton
+kernel (gather, rank-rw product and subtraction in one pass) and a plain
+version. The small-ny algebra after the contraction (closed-form
+Cholesky, weights, gain) is plain XLA. ny is restricted to 1..3 (radio
+ny=1, magnetic ny=3); larger ny uses ops/kalman.py.
 """
 
 from __future__ import annotations
@@ -39,550 +35,120 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
+
+from ..ops.kalman import (
+    _chol_small_batched,
+    _Li_from_chol_small_batched,
+    _tri_solve_small_batched,
+)
 
 _LOG2PI = float(np.log(2.0 * np.pi))
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
-def _onehot_col(ny, j, dtype):
-    """Constant one-hot column vector [ny, 1] built from iota (no scatter)."""
-    return (jax.lax.broadcasted_iota(jnp.int32, (ny, 1), 0) == j).astype(dtype)
+def _factor_projection(C, Wt):
+    """CWt [N, ny, rw] = C Wt^T: the factor rows seen through C."""
+    return jnp.einsum("pin,prn->pir", C, Wt, precision=_HIGHEST,
+                      preferred_element_type=jnp.float32)
 
 
-def _extract_entry(col, i, ny):
-    """col [B, ny, 1] -> S[:, i] as [B, 1, 1] via a one-hot dot_general
-    (the verified slice-free scalar-extraction pattern: two dot_generals
-    against one-hot vectors — NOT jnp.sum(keepdims)/slicing, which abort
-    or silently miscompile under Mosaic here)."""
-    u = _onehot_col(ny, i, col.dtype)
-    return jax.lax.dot_general(
-        col, u, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
+def gather_cp_reference(bidx, C, Wt, P_base):
+    """Plain CP[b] = C[b] (P_base[bidx[b]] - Wt[b]^T Wt[b]) -> [N, ny, nl] f32.
+
+    Materializes the gathered covariances; the factor correction is
+    applied as (C Wt^T) Wt so Wt^T Wt is never formed."""
+    P = jnp.take(P_base, bidx, axis=0)
+    CP = jnp.einsum("pij,pjk->pik", C, P,
+                    preferred_element_type=jnp.float32)
+    corr = jnp.einsum("pir,prn->pin", _factor_projection(C, Wt), Wt,
+                      preferred_element_type=jnp.float32)
+    return CP - corr
 
 
-def _pair_mask(ny, i, j, dtype):
-    """Constant [1, ny, ny] indicator of entry (i, j)."""
-    return ((jax.lax.broadcasted_iota(jnp.int32, (1, ny, ny), 1) == i)
-            & (jax.lax.broadcasted_iota(jnp.int32, (1, ny, ny), 2) == j)
-            ).astype(dtype)
+_ROWS = 16   # rows of the smallest Triton dot operand; rows >= ny masked
 
 
-def _spd_inv_logdet(S, ny: int, jitter: float, want_sinv: bool = True):
-    """Batched closed-form inverse + log-det of tiny SPD matrices via a
-    SCALARIZED Cholesky — full-tensor math only, slice-free.
+def _gather_cp_kernel(bidx_ref, c_ref, cwt_ref, wt_ref, p_ref, out_ref, *,
+                      ny, nl, rw, block_k, block_n):
+    """One (particle, column tile) program: out[b, :, tile] over all rows.
 
-    Entries of S are extracted as [B, 1, 1] scalars through one-hot
-    ``dot_general``s (sublane slicing is silently wrong on this
-    toolchain and in-kernel reshapes abort — see _block_update_math),
-    the ny <= 3 Cholesky recursion runs as elementwise sqrt/divide on
-    those scalars (numerically the same closed form as
-    ops/kalman._chol_small_batched — the stable route, unlike the
-    trace-power/Cayley-Hamilton det formula this replaces, whose
-    e3 = (t1^3 - 3 t1 t2 + 2 t3)/6 cancellation produced det <= 0 and
-    1e-2-level logdet error on PD inputs at f32), and S^-1/logdet are
-    reassembled with broadcast one-hot masks.
+    Loads its own ancestor index, then streams P_base[bidx[b]] in
+    [block_k, block_n] tiles through a dot with the particle's C rows
+    (padded to 16; the pipeline depth is the compiler's num_stages).
+    Ragged nl and the factor rows beyond rw are masked."""
+    b = pl.program_id(0)
+    col0 = pl.program_id(1) * block_n
+    col_ok = col0 + jnp.arange(block_n) < nl
+    row_ok = jnp.arange(_ROWS) < ny
+    src = bidx_ref[b]
 
-    Repair contract (matches math/linalg.psd_cholesky): any non-positive
-    pivot triggers a per-particle shift j = jitter-scaled + the
-    Gershgorin excess max_i(sum_{k != i} |S_ik| - S_ii), which makes
-    S + jI strictly diagonally dominant, hence PD; pivots of the shifted
-    recursion are floor-clamped so the outputs are ALWAYS finite.
-    Returns (Sinv, logdet [B,1,1], bad [B,1,1] bool, Linv [B,ny,ny]
-    lower-triangular with S^-1 = Linv' Linv — the whitener the factored
-    update's new factor rows Wnew = Linv C P need).
-    """
-    if ny == 1:
-        scale = jnp.maximum(1.0, S)
-        bad = S <= 1e-30 * scale
-        g = -S                              # Gershgorin excess, 1x1
-        j = jnp.where(bad, jitter * scale + jnp.maximum(g, 0.0), 0.0)
-        Ssh = jnp.maximum(S + j, 1e-30 * scale)
-        return 1.0 / Ssh, jnp.log(Ssh), bad, jax.lax.rsqrt(Ssh)
-
-    # --- extract the unique entries as [B, 1, 1] scalars ---------------
-    cols = [
-        jax.lax.dot_general(
-            S, _onehot_col(ny, c, S.dtype), (((2,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
+    def body(kk, acc):
+        k0 = kk * block_k
+        k_ok = k0 + jnp.arange(block_k) < nl
+        p = pltriton.load(
+            p_ref.at[src, pl.ds(k0, block_k), pl.ds(col0, block_n)],
+            mask=k_ok[:, None] & col_ok[None, :], other=0.0,
         )
-        for c in range(ny)
-    ]                                       # each [B, ny, 1]
-    s11 = _extract_entry(cols[0], 0, ny)
-    s21 = _extract_entry(cols[0], 1, ny)
-    s22 = _extract_entry(cols[1], 1, ny)
-    if ny == 3:
-        s31 = _extract_entry(cols[0], 2, ny)
-        s32 = _extract_entry(cols[1], 2, ny)
-        s33 = _extract_entry(cols[2], 2, ny)
-    else:
-        s31 = s32 = s33 = None
+        c = pltriton.load(
+            c_ref.at[b, pl.ds(0, _ROWS), pl.ds(k0, block_k)],
+            mask=row_ok[:, None] & k_ok[None, :], other=0.0,
+        ).astype(p.dtype)
+        return acc + pl.dot(c, p, allow_tf32=False)
 
-    tr = s11 + s22 + (s33 if ny == 3 else 0.0)
-    scale = jnp.maximum(1.0, tr / ny)
-    floor = 1e-30 * scale
-    tiny = 1e-30
-
-    def pivots(a11, a22, a33):
-        l11 = jnp.sqrt(jnp.maximum(a11, tiny))
-        l21 = s21 / l11
-        p2 = a22 - l21 * l21
-        if ny == 2:
-            return (a11, p2), (l11, l21)
-        l31 = s31 / l11
-        l22 = jnp.sqrt(jnp.maximum(p2, tiny))
-        l32 = (s32 - l31 * l21) / l22
-        p3 = a33 - l31 * l31 - l32 * l32
-        return (a11, p2, p3), (l11, l21, l31, l22, l32)
-
-    piv0, _ = pivots(s11, s22, s33)
-    bad = piv0[0] <= floor
-    for p in piv0[1:]:
-        bad = bad | (p <= floor)
-
-    # Gershgorin excess: shift that guarantees strict diagonal dominance
-    if ny == 2:
-        g = jnp.maximum(jnp.abs(s21) - s11, jnp.abs(s21) - s22)
-    else:
-        g = jnp.maximum(
-            jnp.abs(s21) + jnp.abs(s31) - s11,
-            jnp.maximum(
-                jnp.abs(s21) + jnp.abs(s32) - s22,
-                jnp.abs(s31) + jnp.abs(s32) - s33,
-            ),
-        )
-    j = jnp.where(bad, jitter * scale + jnp.maximum(g, 0.0), 0.0)
-
-    # --- shifted recursion with floor-clamped pivots (always finite) ---
-    a11 = s11 + j
-    a22 = s22 + j
-    a33 = s33 + j if ny == 3 else None
-    pivs, _ = pivots(a11, a22, a33)
-    pivs = tuple(jnp.maximum(p, floor) for p in pivs)
-    logdet = sum(jnp.log(p) for p in pivs)
-
-    if ny == 2:
-        l11 = jnp.sqrt(pivs[0])
-        l21 = s21 / l11
-        l22 = jnp.sqrt(pivs[1])
-        m11 = 1.0 / l11
-        m22 = 1.0 / l22
-        m21 = -l21 * m11 * m22
-        Sinv = None
-        if want_sinv:
-            i11 = m11 * m11 + m21 * m21
-            i21 = m21 * m22
-            i22 = m22 * m22
-            Sinv = (
-                i11 * _pair_mask(ny, 0, 0, m11.dtype)
-                + i21 * (_pair_mask(ny, 1, 0, m11.dtype)
-                         + _pair_mask(ny, 0, 1, m11.dtype))
-                + i22 * _pair_mask(ny, 1, 1, m11.dtype)
-            )
-        Linv = (
-            m11 * _pair_mask(ny, 0, 0, m11.dtype)
-            + m21 * _pair_mask(ny, 1, 0, m11.dtype)
-            + m22 * _pair_mask(ny, 1, 1, m11.dtype)
-        )
-        return Sinv, logdet, bad, Linv
-
-    l11 = jnp.sqrt(pivs[0])
-    l21 = s21 / l11
-    l31 = s31 / l11
-    l22 = jnp.sqrt(pivs[1])
-    l32 = (s32 - l31 * l21) / l22
-    l33 = jnp.sqrt(pivs[2])
-    # L^-1 entries (lower), then S^-1 = L^-T L^-1
-    m11 = 1.0 / l11
-    m22 = 1.0 / l22
-    m33 = 1.0 / l33
-    m21 = -l21 * m11 * m22
-    m32 = -l32 * m22 * m33
-    m31 = (l21 * l32 - l31 * l22) * m11 * m22 * m33
-    dt = m11.dtype
-    Sinv = None
-    if want_sinv:
-        i11 = m11 * m11 + m21 * m21 + m31 * m31
-        i21 = m21 * m22 + m31 * m32
-        i31 = m31 * m33
-        i22 = m22 * m22 + m32 * m32
-        i32 = m32 * m33
-        i33 = m33 * m33
-        Sinv = (
-            i11 * _pair_mask(ny, 0, 0, dt)
-            + i22 * _pair_mask(ny, 1, 1, dt)
-            + i33 * _pair_mask(ny, 2, 2, dt)
-            + i21 * (_pair_mask(ny, 1, 0, dt) + _pair_mask(ny, 0, 1, dt))
-            + i31 * (_pair_mask(ny, 2, 0, dt) + _pair_mask(ny, 0, 2, dt))
-            + i32 * (_pair_mask(ny, 2, 1, dt) + _pair_mask(ny, 1, 2, dt))
-        )
-    Linv = (
-        m11 * _pair_mask(ny, 0, 0, dt)
-        + m21 * _pair_mask(ny, 1, 0, dt)
-        + m22 * _pair_mask(ny, 1, 1, dt)
-        + m31 * _pair_mask(ny, 2, 0, dt)
-        + m32 * _pair_mask(ny, 2, 1, dt)
-        + m33 * _pair_mask(ny, 2, 2, dt)
-    )
-    return Sinv, logdet, bad, Linv
+    acc = jax.lax.fori_loop(0, pl.cdiv(nl, block_k), body,
+                            jnp.zeros((_ROWS, block_n), jnp.float32))
+    rw_pad = max(_ROWS, pl.next_power_of_2(rw))
+    r_ok = jnp.arange(rw_pad) < rw
+    cw = pltriton.load(cwt_ref.at[b, pl.ds(0, _ROWS), pl.ds(0, rw_pad)],
+                       mask=row_ok[:, None] & r_ok[None, :], other=0.0)
+    wt = pltriton.load(
+        wt_ref.at[b, pl.ds(0, rw_pad), pl.ds(col0, block_n)],
+        mask=r_ok[:, None] & col_ok[None, :], other=0.0,
+    ).astype(jnp.float32)
+    pltriton.store(out_ref.at[b, pl.ds(0, _ROWS), pl.ds(col0, block_n)],
+                   acc - pl.dot(cw, wt, allow_tf32=False),
+                   mask=row_ok[:, None] & col_ok[None, :])
 
 
-def _block_update_math(ny, jitter, C, P, e_ref, xl_ref, R_ref,
-                       P_out_ref, xl_out_ref, logw_ref, bad_ref):
-    # P arrives in its STORAGE dtype (bf16 or f32) and is never cast as a
-    # full tensor: the MXU consumes bf16 operands natively with f32
-    # accumulation (preferred_element_type), so the only extra rounding
-    # vs an f32 pipeline is the final downdate subtract in storage dtype
-    # — which the XLA path's output cast performs anyway.
-    """Shared blocked KF-update algebra (one particle block).
-
-    The two O(nl^2)-per-particle products (CP = C P and the rank-ny
-    downdate) run as batch-dimension `dot_general`s on the MXU —
-    measured at the P copy-bandwidth floor at nl=128. The small-ny
-    algebra between them is SLICE-FREE by design: a scalarized
-    closed-form Cholesky inverse/log-det (_spd_inv_logdet) on one-hot-
-    extracted [B, 1, 1] scalars of the [B, ny, ny] tensor.
-    Slicing the ny (sublane) axis is forbidden in this kernel — Mosaic
-    gives each sliced [B, 1] vector a distinct sublane offset and (on
-    this toolchain) combines mismatched offsets without relayout,
-    producing silently wrong hardware results that interpret mode does
-    not reproduce. In-kernel RESHAPES are also forbidden (the layout
-    inferer aborts on rank-changing vector reshapes): e arrives [B,1,ny],
-    xl [B,1,nl], and logw/bad leave as [B,1,1].
-    """
-
-    # CP[b] = C[b] @ P[b] — batched MXU matmul (the N*nl*nl MACs)
-    CP3 = jax.lax.dot_general(
-        C.astype(P.dtype), P, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )                                              # [B, ny, nl]
-
-    # innovation covariance S = C P C' + R — batched [B, ny, ny]
-    S = jax.lax.dot_general(
-        CP3, C, (((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    ) + R_ref[...][None, :, :]
-
-    Sinv, logdet, bad, _ = _spd_inv_logdet(S, ny, jitter)
-
-    # whitened quadratic + log-weight: e' S^-1 e via full-tensor products
-    e_row = e_ref[...]                             # [B, 1, ny]
-    eS = jax.lax.dot_general(
-        e_row, Sinv, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )                                              # [B, 1, ny]
-    quad = jax.lax.dot_general(
-        eS, e_row, (((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )                                              # [B, 1, 1]
-    logw_ref[...] = -0.5 * quad - 0.5 * logdet - 0.5 * ny * _LOG2PI
-    bad_ref[...] = bad.astype(jnp.int32)
-
-    # gain rows K3 = Sinv CP  (K = (CP)' Sinv, matching ops/kalman's
-    # einsum("pji,pjk->pik", CP, Sinv) with Sinv symmetric)
-    K3 = jax.lax.dot_general(
-        Sinv, CP3, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )                                              # [B, ny, nl]
-    xl_step = jax.lax.dot_general(
-        e_row, K3, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )                                              # [B, 1, nl]
-    xl_out_ref[...] = xl_ref[...] + xl_step
-
-    # covariance downdate P'[b] = P[b] - CP[b]' K3[b] — second batched
-    # MXU matmul (contract the ny axis). This is the only [nl, nl]-output
-    # matmul in the kernel — the MXU streams nl rows per particle for it,
-    # so it dominates the kernel's cycle count. Feed it operands in the
-    # STORAGE dtype: with bf16 covariance the MXU runs native-bf16 passes
-    # (f32 operands cost 3x passes via bf16x3), and the extra rounding is
-    # below the bf16 quantization of the P' store that follows.
-    dd = jax.lax.dot_general(
-        CP3.astype(P.dtype), K3.astype(P.dtype), (((1,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )                                              # [B, nl, nl]
-    P_out_ref[...] = P - dd.astype(P.dtype)
-
-
-def _kernel_block_gather(ny: int, block: int, jitter: float,
-                         ai_ref, C_ref, e_ref, xl_ref, R_ref,
-                         P_hbm,
-                         P_out_ref, xl_out_ref, logw_ref, bad_ref,
-                         pbuf, sems):
-    """Gather-fused blocked KF update: the resampling gather of P rides
-    per-particle lookahead DMAs instead of a materialized `jnp.take`.
-
-    While block i computes on the MXU/VPU, block i+1's ancestor
-    covariances P[ai] are already in flight (issued one grid step ahead
-    into the other half of a double buffer), so the gather costs only
-    the HBM *read* of the ancestors — the XLA path additionally writes
-    and re-reads the full gathered [N, nl, nl] tensor. Total P traffic
-    per step drops from ~2 reads + 2 writes to 1 read + 1 write — the
-    information-theoretic minimum for a resampled covariance update
-    (reference semantics: src/particleFilter.m:104-113,163-204).
-    """
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-
-    def issue(block_idx, slot):
-        base = block_idx * block
-        for b in range(block):
-            pltpu.make_async_copy(
-                P_hbm.at[ai_ref[base + b]], pbuf.at[slot, b],
-                sems.at[slot, b],
-            ).start()
-
-    @pl.when(i == 0)
-    def _():
-        issue(0, 0)
-
-    slot = jax.lax.rem(i, 2)
-
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        issue(i + 1, jax.lax.rem(i + 1, 2))
-
-    for b in range(block):
-        pltpu.make_async_copy(
-            P_hbm.at[ai_ref[i * block + b]], pbuf.at[slot, b],
-            sems.at[slot, b],
-        ).wait()
-
-    P = pbuf[slot]                                 # [B, nl, nl]
-    _block_update_math(
-        ny, jitter, C_ref[...], P,
-        e_ref, xl_ref, R_ref, P_out_ref, xl_out_ref, logw_ref, bad_ref,
-    )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("ny", "nl", "block", "jitter", "interpret")
-)
-def _block_gather_call(ai, C, e, xl, R, P_all, ny, nl, block, jitter,
-                       interpret):
-    n = e.shape[0]
-    grid = (n // block,)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block, ny, nl), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, 1, ny), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, 1, nl), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ny, ny), lambda i, *_: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),   # P_all stays in HBM
-        ],
-        out_specs=[
-            pl.BlockSpec((block, nl, nl), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, 1, nl), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, 1, 1), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, 1, 1), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, block, nl, nl), P_all.dtype),
-            pltpu.SemaphoreType.DMA((2, block)),
-        ],
-    )
-    return pl.pallas_call(
-        functools.partial(_kernel_block_gather, ny, block, jitter),
-        out_shape=[
-            jax.ShapeDtypeStruct((n, nl, nl), P_all.dtype),
-            jax.ShapeDtypeStruct((n, 1, nl), jnp.float32),
-            jax.ShapeDtypeStruct((n, 1, 1), jnp.float32),
-            jax.ShapeDtypeStruct((n, 1, 1), jnp.int32),
-        ],
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(ai, C, e[:, None, :], xl[:, None, :], R, P_all)
-
-
-def kf_update_block_gather(ai, C, xl_gathered, P_all, y, R,
-                           jitter: float = 1e-3, block: int = 32):
-    """Gather-fused blocked dense KF update (ONE HBM read + write of P).
-
-    ai [N] ancestor indices (systematic resampling emits them sorted —
-    near-streaming fetch order); C [N, ny, nl] Jacobians at the
-    propagated particles; xl_gathered [N, nl] (the xl gather is [N, nl]
-    — negligible next to P — and stays in XLA); P_all [N, nl, nl]
-    PRE-resampling covariances (f32 or bf16); y [ny]; R [ny, ny].
-    Returns (xl', P', logw, retried) — identical contract (and algebra,
-    up to fp ordering) to ops.kalman.kalman_update_dense_batched with
-    symmetrize_out=False. ny <= 3; nl must be lane-aligned (pad upstream,
-    see rbpf.py).
-    """
+def gather_cp_pallas(bidx, C, Wt, P_base, *, block_k: int = 64,
+                     block_n: int = 128, num_warps: int = 4,
+                     num_stages: int = 3, **call_kwargs):
+    """CP through the Pallas/Triton kernel; same contract as
+    :func:`gather_cp_reference`. ``call_kwargs`` are passed on to
+    ``pl.pallas_call`` (the CPU tests run the kernel in the interpreter)."""
     n, ny, nl = C.shape
-    if ny > 3:
-        raise ValueError("blocked KF kernel supports ny <= 3")
-    if nl % 128:
-        raise ValueError(f"nl={nl} must be a multiple of 128 (pad upstream)")
-    while block > 1 and n % block:
-        block //= 2
-    # VMEM budget: 2-slot P double buffer + pipelined out blocks + f32
-    # temporaries (P cast + downdate)
-    bytes_blk = block * nl * nl
-    while block > 1 and bytes_blk * (4 * P_all.dtype.itemsize + 12) \
-            > 13 * 1024 * 1024:
-        block //= 2
-        bytes_blk //= 2
-    interpret = jax.default_backend() != "tpu"
-    C = C.astype(jnp.float32)
-    e = y[None, :] - jnp.einsum("pij,pj->pi", C, xl_gathered)
-    P_new, xl_new, logw, bad = _block_gather_call(
-        ai.astype(jnp.int32), C, e.astype(jnp.float32),
-        xl_gathered.astype(jnp.float32), jnp.asarray(R, jnp.float32),
-        P_all, ny, nl, block, jitter, interpret,
-    )
-    return (xl_new[:, 0, :], P_new, logw[:, 0, 0],
-            bad[:, 0, 0].astype(bool))
-
-
-# ---------------------------------------------------------------------------
-# Low-rank factored filter update: P = P_base - Wt^T Wt
-#
-# The blocked kernels above are bound by the [nl, nl] covariance
-# downdate: the MXU streams nl rows per particle to produce dd and the
-# pipeline writes nl x nl back to HBM every step (measured: the block
-# kernel runs ~2x above the P copy floor, scripts/profile_kernel_scan.py).
-# But the KF downdate is additive rank-ny per step
-# (src/particleFilter.m:194-198):
-#
-#     P_t = P_base - sum_tau U_tau S_tau^-1 U_tau^T = P_base - Wt^T Wt,
-#     Wt rows at step tau: Y_tau = L_tau^-1 C_tau P_tau   (S = L L^T)
-#
-# so the filter can carry the FACTOR Wt [rw, nl] (rw = ny * rebase
-# period) instead of P, and materialize P ("rebase") only every r steps:
-# per step the kernel reads the ancestor's P_base row (read-only between
-# rebases -> gathered by composed base indices, never rewritten), reads
-# the small factor, and writes ny new factor rows — ~2x less HBM traffic
-# and no [nl, nl]-output matmul except at rebases. All small-ny algebra
-# here is mask-assembled scalar math on [B, 1, 1] tensors (no sublane
-# slicing, no reshapes — see _block_update_math's layout notes).
-# ---------------------------------------------------------------------------
-
-
-def _kernel_gather_cp(ny: int, block: int,
-                      bidx_ref, C_ref, Wt_ref,
-                      P_base_hbm,
-                      cp_ref,
-                      pbuf, sems):
-    """Gather-fused effective-CP contraction:
-    CP[b] = C[b] @ (P_base[bidx[b]] - Wt[b]^T Wt[b]).
-
-    The heavy op of the factored update — the per-particle ancestor
-    row rides lookahead double-buffered DMAs (P_base is read-only between
-    rebases, so nothing is ever written back), and the low-rank factor
-    correction C Wt^T Wt folds in here too (two batch-0 dots), so XLA
-    never re-reads C/Wt or round-trips an uncorrected CP. The bare
-    gather+dot was measured at the P read-bandwidth floor
-    (scripts/profile_gather_cp.py: 1.11 ms/step at N=16384, nl=128).
-    The remaining small-ny algebra (S, Cholesky, weights, gain) runs in
-    XLA, where the batched [N, ny, *] ops fuse well — an earlier
-    monolithic kernel keeping the full update in Mosaic ran 3x slower.
-    (Tried and reverted: gathering the factor rows by per-particle DMA
-    inside this kernel — the interleaved small row DMAs stalled the P
-    stream and measured 3% SLOWER end-to-end than XLA's take.)
-    """
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-
-    def issue(block_idx, slot):
-        base = block_idx * block
-        for b in range(block):
-            pltpu.make_async_copy(
-                P_base_hbm.at[bidx_ref[base + b]], pbuf.at[slot, b],
-                sems.at[slot, b],
-            ).start()
-
-    @pl.when(i == 0)
-    def _():
-        issue(0, 0)
-
-    slot = jax.lax.rem(i, 2)
-
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        issue(i + 1, jax.lax.rem(i + 1, 2))
-
-    for b in range(block):
-        pltpu.make_async_copy(
-            P_base_hbm.at[bidx_ref[i * block + b]], pbuf.at[slot, b],
-            sems.at[slot, b],
-        ).wait()
-
-    P = pbuf[slot]
-    # NOTE: every dot here keeps batch dims at axis 0 on both sides —
-    # Mosaic's tpu.matmul requires lhs/rhs batch dims at the same axis
-    # index (a [ny, block, nl] lhs fails "batch dims must be equal") and
-    # rejects batched GEMV (empty lhs_non_contracting_dims), so the
-    # transposed-C layout cannot feed these directly; the caller pays
-    # one XLA transpose instead.
-    C = C_ref[...]
-    CPb = jax.lax.dot_general(
-        C.astype(P.dtype), P, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )
-    Wt = Wt_ref[...]
-    CWt = jax.lax.dot_general(
-        C.astype(Wt.dtype), Wt, (((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )                                              # [block, ny, rw]
-    corr = jax.lax.dot_general(
-        CWt.astype(Wt.dtype), Wt, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )                                              # [block, ny, nl]
-    cp_ref[...] = CPb - corr
-
-
-@functools.partial(
-    jax.jit, static_argnames=("ny", "nl", "block", "interpret")
-)
-def _gather_cp_call(bidx, C, Wt, P_base, ny, nl, block, interpret):
-    n = C.shape[0]
     rw = Wt.shape[1]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n // block,),
-        in_specs=[
-            pl.BlockSpec((block, ny, nl), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, rw, nl), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),   # P_base stays in HBM
-        ],
-        out_specs=[
-            pl.BlockSpec((block, ny, nl), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, block, nl, nl), P_base.dtype),
-            pltpu.SemaphoreType.DMA((2, block)),
-        ],
-    )
+    block_n = min(block_n, max(16, pl.next_power_of_2(nl)))
+    block_k = min(block_k, max(16, pl.next_power_of_2(nl)))
+    kernel = functools.partial(_gather_cp_kernel, ny=ny, nl=nl, rw=rw,
+                               block_k=block_k, block_n=block_n)
     return pl.pallas_call(
-        functools.partial(_kernel_gather_cp, ny, block),
-        out_shape=[jax.ShapeDtypeStruct((n, ny, nl), jnp.float32)],
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(bidx, C, Wt, P_base)[0]
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((n, ny, nl), jnp.float32),
+        grid=(n, pl.cdiv(nl, block_n)),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+                                                num_stages=num_stages),
+        name="gather_cp",
+        **call_kwargs,
+    )(bidx.astype(jnp.int32), C, _factor_projection(C, Wt), Wt, P_base)
+
+
+def gather_cp(bidx, C, Wt, P_base):
+    """CP [N, ny, nl] f32: the Triton kernel when lowered for CUDA, the
+    plain version on the CPU; any other platform fails to lower."""
+    return jax.lax.platform_dependent(
+        bidx, C, Wt, P_base, cuda=gather_cp_pallas, cpu=gather_cp_reference,
+    )
 
 
 def kf_update_lowrank(bidx, C, xl_gathered, Wt_gathered, P_base, y, R,
-                      jitter: float = 1e-3, block: int = 64):
+                      jitter: float = 1e-3):
     """Factored dense KF update: covariance P = P_base - Wt^T Wt.
 
     bidx [N] int32 ancestor-composed base indices into P_base; C
-    [N, ny, nl] Jacobians at the propagated particles in ROWS layout —
-    the layout Mosaic's matmul batch-dim rules force on the kernel,
-    produced directly in the storage dtype by the fused Jacobian kernel
-    (basis_eval.py::mag3d_jacobian_rows_pallas, no transpose pass);
+    [N, ny, nl] Jacobians at the propagated particles (storage dtype);
     xl_gathered [N, nl]; Wt_gathered [N, rw, nl] accumulated factor rows
     (already resampled; zero rows are inactive and contribute nothing);
     P_base [N, nl, nl] the last rebased covariances (read-only between
@@ -590,46 +156,14 @@ def kf_update_lowrank(bidx, C, xl_gathered, Wt_gathered, P_base, y, R,
     Returns (xl', Wnew [N, ny, nl] storage dtype, logw, retried) where
     Wnew = L^-1 C P are the step's whitened factor rows (Wnew^T Wnew is
     exactly the covariance downdate) to place into Wt — engines/rbpf.py
-    does the masked-add placement. Hybrid split: the Pallas kernel
-    performs the gather-fused CP contraction (read floor) with the
-    factor correction folded in; the small-ny algebra (closed-form
-    Cholesky, weights, gain) runs in XLA (ops/kalman.py helpers) — a
-    monolithic all-in-kernel variant measured SLOWER (batched small
-    dots lower to per-batch MXU loops in Mosaic; NEGATIVE_RESULTS.md).
-    Algebra identical to kf_update_block_gather up to fp ordering; nl
-    must be lane-aligned, ny <= 3.
+    does the placement. Same algebra as
+    ops.kalman.kalman_update_dense_batched on the materialized P, up to
+    fp ordering; ny <= 3.
     """
-    from ..ops.kalman import (
-        _chol_small_batched,
-        _Li_from_chol_small_batched,
-        _tri_solve_small_batched,
-    )
-
     n, ny, nl = C.shape
     if ny > 3:
-        raise ValueError("lowrank KF kernel supports ny <= 3")
-    if nl % 128:
-        raise ValueError(f"nl={nl} must be a multiple of 128 (pad upstream)")
-    while block > 1 and n % block:
-        block //= 2
-    # VMEM budget: P double buffer + the pipelined Wt/C in blocks and CP
-    # out block (ADVICE r4: count the factor block too, so a large
-    # --lowrank-period shrinks block instead of the safety margin)
-    itemsize = P_base.dtype.itemsize
-    rw = Wt_gathered.shape[1]
-    per_particle = (
-        2 * nl * nl * itemsize          # P double buffer
-        + 2 * rw * nl * Wt_gathered.dtype.itemsize  # Wt double-buffered
-        + 2 * 8 * nl * C.dtype.itemsize             # C in (sublane pad)
-        + 2 * 8 * nl * 4                            # CP out f32
-    )
-    while block > 1 and block * per_particle > 13 * 1024 * 1024:
-        block //= 2
-    interpret = jax.default_backend() != "tpu"
-    CP = _gather_cp_call(bidx.astype(jnp.int32), C, Wt_gathered, P_base,
-                         ny, nl, block, interpret)        # [N, ny, nl]
-    # C participates below in its storage dtype (bf16 operands feed the
-    # MXU natively with f32 accumulation — no materialized f32 copy)
+        raise ValueError("lowrank KF update supports ny <= 3")
+    CP = gather_cp(bidx.astype(jnp.int32), C, Wt_gathered, P_base)
     S = jnp.einsum("pij,pkj->pik", CP, C,
                    preferred_element_type=jnp.float32) \
         + jnp.asarray(R, jnp.float32)[None]
@@ -644,7 +178,7 @@ def kf_update_lowrank(bidx, C, xl_gathered, Wt_gathered, P_base, y, R,
         - 0.5 * ny * _LOG2PI
     )
     Li = _Li_from_chol_small_batched(L)
-    # ONE combined gain matmul: stack the state-gain row z'L^-1 on top
+    # ONE combined gain product: stack the state-gain row z'L^-1 on top
     # of L^-1 so xl' and the new factor rows come from a single pass
     # over CP (one read of the [N, ny, nl] f32 tensor instead of two)
     zLi = jnp.einsum("pi,pij->pj", z, Li)
@@ -656,91 +190,62 @@ def kf_update_lowrank(bidx, C, xl_gathered, Wt_gathered, P_base, y, R,
     return xl_new, Wnew, logw, bad
 
 
-def _kernel_rebase(block: int,
-                   bidx_ref, Wt_ref,
-                   P_base_hbm,
-                   P_out_ref,
-                   pbuf, sems):
-    """Materialize P' = P_base[bidx] - Wt^T Wt (the once-per-r-steps
-    rebase; the [nl, nl]-output matmul the per-step path avoids)."""
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-
-    def issue(block_idx, slot):
-        base = block_idx * block
-        for b in range(block):
-            pltpu.make_async_copy(
-                P_base_hbm.at[bidx_ref[base + b]], pbuf.at[slot, b],
-                sems.at[slot, b],
-            ).start()
-
-    @pl.when(i == 0)
-    def _():
-        issue(0, 0)
-
-    slot = jax.lax.rem(i, 2)
-
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        issue(i + 1, jax.lax.rem(i + 1, 2))
-
-    for b in range(block):
-        pltpu.make_async_copy(
-            P_base_hbm.at[bidx_ref[i * block + b]], pbuf.at[slot, b],
-            sems.at[slot, b],
-        ).wait()
-
-    P = pbuf[slot]
-    Wt = Wt_ref[...]
-    dd = jax.lax.dot_general(
-        Wt, Wt, (((1,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )                                              # [B, nl, nl]
-    P_out_ref[...] = P - dd.astype(P.dtype)
+def rebase_reference(bidx, Wt, P_base):
+    """Plain P' [N, nl, nl] = P_base[bidx] - Wt^T Wt (storage dtype)."""
+    dd = jnp.einsum("pri,prj->pij", Wt, Wt,
+                    preferred_element_type=jnp.float32)
+    return jnp.take(P_base, bidx, axis=0) - dd.astype(P_base.dtype)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("nl", "rw", "block", "interpret")
-)
-def _rebase_call(bidx, Wt, P_base, nl, rw, block, interpret):
-    n = Wt.shape[0]
-    grid = (n // block,)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block, rw, nl), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((block, nl, nl), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, block, nl, nl), P_base.dtype),
-            pltpu.SemaphoreType.DMA((2, block)),
-        ],
+def _rebase_kernel(bidx_ref, wt_ref, p_ref, out_ref, *, nl, rw, block):
+    """One (particle, row tile, column tile) program of the rebase: the
+    ancestor's P_base tile minus the factor's rank-rw product, written
+    once in the storage dtype."""
+    b = pl.program_id(0)
+    r0 = pl.program_id(1) * block
+    c0 = pl.program_id(2) * block
+    r_ok = r0 + jnp.arange(block) < nl
+    c_ok = c0 + jnp.arange(block) < nl
+    rw_pad = max(_ROWS, pl.next_power_of_2(rw))
+    w_ok = jnp.arange(rw_pad) < rw
+    wi = pltriton.load(wt_ref.at[b, pl.ds(0, rw_pad), pl.ds(r0, block)],
+                       mask=w_ok[:, None] & r_ok[None, :], other=0.0)
+    wj = pltriton.load(wt_ref.at[b, pl.ds(0, rw_pad), pl.ds(c0, block)],
+                       mask=w_ok[:, None] & c_ok[None, :], other=0.0)
+    dd = pl.dot(wi, wj, trans_a=True, allow_tf32=False)
+    tile = r_ok[:, None] & c_ok[None, :]
+    p = pltriton.load(
+        p_ref.at[bidx_ref[b], pl.ds(r0, block), pl.ds(c0, block)],
+        mask=tile, other=0.0,
     )
-    out = pl.pallas_call(
-        functools.partial(_kernel_rebase, block),
-        out_shape=[jax.ShapeDtypeStruct((n, nl, nl), P_base.dtype)],
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(bidx, Wt, P_base)
-    return out[0]
+    pltriton.store(out_ref.at[b, pl.ds(r0, block), pl.ds(c0, block)],
+                   (p.astype(jnp.float32) - dd).astype(out_ref.dtype),
+                   mask=tile)
 
 
-def kf_rebase(bidx, Wt, P_base, block: int = 32):
-    """P' [N, nl, nl] = P_base[bidx] - Wt^T Wt (storage dtype)."""
+def rebase_pallas(bidx, Wt, P_base, *, block: int = 128, num_warps: int = 4,
+                  num_stages: int = 2, **call_kwargs):
+    """The rebase through a Pallas/Triton kernel (same contract as
+    :func:`rebase_reference`, one rounding to the storage dtype)."""
     n, rw, nl = Wt.shape
-    while block > 1 and n % block:
-        block //= 2
-    bytes_blk = block * nl * nl
-    while block > 1 and bytes_blk * (4 * P_base.dtype.itemsize + 8) \
-            > 13 * 1024 * 1024:
-        block //= 2
-        bytes_blk //= 2
-    interpret = jax.default_backend() != "tpu"
-    return _rebase_call(bidx.astype(jnp.int32), Wt, P_base, nl, rw,
-                        block, interpret)
+    block = min(block, max(16, pl.next_power_of_2(nl)))
+    nb = pl.cdiv(nl, block)
+    return pl.pallas_call(
+        functools.partial(_rebase_kernel, nl=nl, rw=rw, block=block),
+        out_shape=jax.ShapeDtypeStruct((n, nl, nl), P_base.dtype),
+        grid=(n, nb, nb),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+                                                num_stages=num_stages),
+        name="rebase",
+        **call_kwargs,
+    )(bidx.astype(jnp.int32), Wt, P_base)
+
+
+def kf_rebase(bidx, Wt, P_base):
+    """P' [N, nl, nl] = P_base[bidx] - Wt^T Wt (storage dtype): the
+    once-per-period materialization. The Triton kernel when lowered for
+    CUDA, the plain version on the CPU."""
+    return jax.lax.platform_dependent(
+        bidx, Wt, P_base, cuda=rebase_pallas, cpu=rebase_reference,
+    )

@@ -2,7 +2,7 @@
 
 The reference retries a failed `chol` once with a fixed diagonal jitter
 (src/particleFilter.m:145-148 with 1e-3, src/particleSmoother.m:70 with
-1e-2). On TPU a failed Cholesky returns NaNs rather than raising, so
+1e-2). Under XLA a failed Cholesky returns NaNs rather than raising, so
 :func:`psd_cholesky` reproduces the retry branch-free: factor once, detect
 non-finite columns, refactor with jitter, select — and reports how many
 retries fired so callers can surface it as a numerics metric (SURVEY §5
@@ -27,7 +27,7 @@ def psd_cholesky(A, jitter: float):
 
     Returns ``(L, retried)`` where ``retried`` is a boolean (per batch
     element) that is True when a repaired factorization was used. Stage 1
-    is the TPU-native equivalent of the reference's ``chol`` flag retry
+    is the branch-free equivalent of the reference's ``chol`` flag retry
     (src/particleFilter.m:145-148: one fixed-jitter refactorization);
     stage 2 — for matrices too indefinite for the fixed jitter — shifts
     by the Gershgorin lower bound on the smallest eigenvalue, which makes

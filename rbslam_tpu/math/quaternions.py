@@ -6,8 +6,8 @@ tools/rmat2quat.m, tools/quat2euler.m, tools/mcross.m) but every function
 here is written for the *single* element with trailing-axis quaternions
 ``[..., 4]`` and broadcasts/vmaps naturally — the MATLAB batched variants
 (4x4xN multiplication-matrix stacks built through ``multiprod``) are
-unnecessary on TPU where `vmap`+`einsum` produce the same batched matmuls
-directly on the MXU.
+unnecessary where `vmap`+`einsum` produce the same batched matmuls
+directly.
 
 Conventions: scalar-first unit quaternions ``q = [w, x, y, z]``; canonical
 sign has nonnegative scalar part (reference expq.m:22-38).

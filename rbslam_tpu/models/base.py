@@ -4,7 +4,7 @@ The reference injects MATLAB closures that draw their own noise
 (`dynModel(xn,dx,dt,Q)` with `randn` inside, run_dense2D_withHeading.m:75-76)
 and a measurement handle whose signature differs between the dense
 (`dy = measModel(xn)`) and sparse (`[yhat,dy] = measModel(xn,xl)`) paths
-(src/particleFilter.m:12-14,123-136). The TPU-native contract keeps those
+(src/particleFilter.m:12-14,123-136). This contract keeps those
 semantics but:
 
 - noise is sampled from an explicit `key` (reproducible across shardings),
@@ -38,21 +38,11 @@ class DenseModel(NamedTuple):
     n_nonlin: int
     n_lin: int
     ny: int
-    # optional whole-ensemble Jacobian (xn [P, dn]) -> C [P, ny, n_lin];
-    # used by the engines instead of vmap(meas_jacobian) when present —
-    # the hook for fused Pallas basis-evaluation kernels that need the
-    # full batch to tile (kernels/basis_eval.py)
-    meas_jacobian_batch: Optional[Callable] = None
     # optional whole-ensemble transition (key, xn [P, dn], u, dt, Q) ->
     # xn' [P, dn]: one key and one batched noise draw instead of P
     # per-particle key splits (threefry key derivation for 16k+ particles
-    # is measurable VPU work in the hot step)
+    # is measurable work in the hot step)
     dynamics_batch: Optional[Callable] = None
-    # optional fused ROWS-layout Jacobian (xn [P, dn], nl_pad, dtype) ->
-    # C [P, ny, nl_pad] in the given storage dtype — the exact input
-    # layout Mosaic's batch-dim rules force on the lowrank KF kernel,
-    # emitted directly (no XLA transpose/cast between the kernels)
-    meas_jacobian_batch_rows: Optional[Callable] = None
 
 
 class SparseModel(NamedTuple):

@@ -47,13 +47,10 @@ def dynamics_with_increment(key, xn, u, dt, Q):
 def make_mag3d_model(
     potential: ScalarPotentialBasis,
     center=None,
-    use_pallas_basis: bool = False,
 ) -> DenseModel:
     """Build the dense magnetic model.
 
-    ``center`` shifts positions into the basis' centered domain;
-    ``use_pallas_basis`` routes the whole-ensemble Jacobian through the
-    fused Pallas basis kernel (kernels/basis_eval.py).
+    ``center`` shifts positions into the basis' centered domain.
     """
     n_lin = potential.n_lin
     c = jnp.zeros(3) if center is None else jnp.asarray(center)
@@ -61,8 +58,8 @@ def make_mag3d_model(
     def dynamics_batch(key, xn, u, dt, Q):
         """Whole-ensemble transition: one [P, 6] noise draw (same
         distribution as vmapped `dynamics`, cheaper key derivation) and
-        closed-form 3x3 Cholesky (XLA's lax.linalg.cholesky lowers tiny
-        factorizations to a slow blocked loop on TPU)."""
+        closed-form 3x3 Cholesky (a tiny factorization needs no
+        lax.linalg call)."""
         from ..ops.kalman import _chol_small_batched
 
         n = xn.shape[0]
@@ -91,28 +88,6 @@ def make_mag3d_model(
         Rnb = quat_to_rmat(xn[_IQUAT])                    # [3, 3]
         return Rnb.T @ C_nav
 
-    meas_jacobian_batch = None
-    meas_jacobian_batch_rows = None
-    if use_pallas_basis:
-        from ..kernels import grad_basis_pallas
-        from ..kernels.basis_eval import mag3d_jacobian_rows_pallas
-
-        def meas_jacobian_batch(xn):
-            pos = xn[:, _IPOS] - c
-            g = grad_basis_pallas(potential.basis, pos)   # [P, 3, m]
-            eye = jnp.broadcast_to(
-                jnp.eye(3, dtype=xn.dtype), g.shape[:-1] + (3,)
-            )
-            C_nav = jnp.concatenate([eye, g], axis=-1)    # [P, 3, 3+m]
-            Rnb = quat_to_rmat(xn[:, _IQUAT])
-            return jnp.einsum("pji,pjk->pik", Rnb, C_nav)
-
-        def meas_jacobian_batch_rows(xn, nl_pad, dtype):
-            return mag3d_jacobian_rows_pallas(
-                potential.basis, xn[:, _IPOS] - c, xn[:, _IQUAT], nl_pad,
-                dtype,
-            )
-
     return DenseModel(
         dynamics=dynamics,
         dyn_residual=dyn_residual,
@@ -120,7 +95,5 @@ def make_mag3d_model(
         n_nonlin=7,
         n_lin=n_lin,
         ny=3,
-        meas_jacobian_batch=meas_jacobian_batch,
         dynamics_batch=dynamics_batch,
-        meas_jacobian_batch_rows=meas_jacobian_batch_rows,
     )

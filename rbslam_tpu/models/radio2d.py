@@ -31,7 +31,6 @@ def _heading_rot_T(theta):
 def make_radio2d_model(
     basis: LaplaceBasis,
     center=None,
-    use_pallas_basis: bool = False,
 ) -> DenseModel:
     m = basis.m
     c = jnp.zeros(2) if center is None else jnp.asarray(center)
@@ -52,13 +51,6 @@ def make_radio2d_model(
     def meas_jacobian(xn):
         return basis.phi(xn[:2] - c)[None, :]  # [1, m]
 
-    meas_jacobian_batch = None
-    if use_pallas_basis:
-        from ..kernels import phi_basis_pallas
-
-        def meas_jacobian_batch(xn):
-            return phi_basis_pallas(basis, xn[:, :2] - c)[:, None, :]
-
     return DenseModel(
         dynamics=dynamics,
         dyn_residual=dyn_residual,
@@ -66,5 +58,4 @@ def make_radio2d_model(
         n_nonlin=3,
         n_lin=m,
         ny=1,
-        meas_jacobian_batch=meas_jacobian_batch,
     )

@@ -8,8 +8,8 @@ Dense path (src/particleFilter.m:137-150,181-198): per particle i,
     xl_i += K_i e_i ;  P_i -= K_i S_i K_i'
 
 All particles at once via einsum — the [N_P, ny, nLin] x [N_P, nLin, nLin]
-contractions are exactly the MXU-shaped batched matmuls that dominate the
-FLOPs (SURVEY §3.1 "dominant cost").
+contractions are the batched products that dominate the cost (SURVEY
+§3.1 "dominant cost").
 
 Sparse path (src/particleFilter.m:127-136,164-180): the reference strips
 NaN-masked rows to a *dynamic* size; here masked rows are kept at fixed
@@ -107,10 +107,11 @@ _LOG2PI = float(jnp.log(2.0 * jnp.pi))
 def _chol_small_batched(S, jitter: float):
     """Closed-form batched Cholesky for ny <= 3: S [N, ny, ny].
 
-    XLA's batched `cholesky`/`triangular_solve` lower to blocked loops
-    that are pathologically slow for tiny matrices on TPU; these are pure
-    elementwise VPU ops over the batch. Jitter is applied per particle
-    where any pivot fails (matching psd_cholesky semantics).
+    Pure elementwise ops over the batch instead of XLA's batched
+    `cholesky`/`triangular_solve`. Where any pivot fails, the particle's
+    S is shifted by a scale-aware jitter plus the Gershgorin excess
+    (matching math/linalg.psd_cholesky), which makes it strictly
+    diagonally dominant, so L is finite for ANY symmetric input.
     Returns (L, bad).
     """
     ny = S.shape[-1]
@@ -136,14 +137,14 @@ def _chol_small_batched(S, jitter: float):
     # scale-aware retry: an absolute jitter (the reference's 1e-3,
     # src/particleFilter.m:145-148) is below one ulp when S's scale is
     # large under reduced precision (bf16 eps ~ 8e-3 relative) — scale
-    # by the mean diagonal so the retry actually restores PD
-    diag_scale = jnp.maximum(
-        1.0,
-        jnp.mean(jnp.diagonal(S, axis1=-2, axis2=-1), axis=-1),
-    )
-    S = jnp.where(
-        bad[:, None, None], S + (jitter * diag_scale)[:, None, None] * eye, S
-    )
+    # by the mean diagonal so the retry actually restores PD; add the
+    # Gershgorin lower bound on lambda_min for matrices too indefinite
+    # for the jitter alone
+    diag = jnp.diagonal(S, axis1=-2, axis2=-1)
+    diag_scale = jnp.maximum(1.0, jnp.mean(diag, axis=-1))
+    gmin = jnp.min(2.0 * diag - jnp.sum(jnp.abs(S), axis=-1), axis=-1)
+    shift = jitter * diag_scale + jnp.maximum(0.0, -gmin)
+    S = jnp.where(bad[:, None, None], S + shift[:, None, None] * eye, S)
 
     L = jnp.zeros_like(S)
     l11 = jnp.sqrt(S[:, 0, 0])

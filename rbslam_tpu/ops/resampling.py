@@ -9,7 +9,7 @@ star asks for. All schemes consume *normalized* weights and return
 ancestor indices; gathering particle state is the caller's `jnp.take`,
 which XLA turns into the appropriate (possibly cross-device) gather.
 
-TPU notes: inverse-CDF lookups use `jnp.searchsorted` on the cumulative
+Inverse-CDF lookups use `jnp.searchsorted` on the cumulative
 weight vector — O(N log N) vectorized compare/select rather than the
 reference's per-particle `sum(cumsum(w) < rand)` scan. No data-dependent
 shapes; everything jits.
@@ -27,7 +27,8 @@ def _inverse_cdf(w, u):
     # guard rounding: force the final CDF entry to cover 1.0
     cdf = cdf / cdf[-1]
     # binary-search lowering ('scan') costs log2(n) strided gathers per
-    # query; at large n the sort-based lowering is much faster on TPU
+    # query; at large n the sort-based lowering does the lookup in one
+    # sort of the merged keys
     method = "sort" if u.ndim and u.shape[0] >= 16384 else "scan"
     return jnp.clip(
         jnp.searchsorted(cdf, u, side="right", method=method),
@@ -54,9 +55,8 @@ def systematic_resample(key, w, n: int):
     closed form without any search: ancestor ai[j] = #{i : cdf_i <= u_j}
     and cdf_i <= (j + u0)/n  <=>  ceil(n cdf_i - u0) <= j, so bucketing
     b_i = ceil(n cdf_i - u0) and taking the cumulative histogram gives
-    every ancestor in O(n) scatter+cumsum — measured 1.24x the sort-based
-    searchsorted on TPU at n=16384, and identical to it up to f32
-    knife-edge rounding (the two sides of the equivalence round
+    every ancestor in O(n) scatter+cumsum, identical to the sort-based
+    searchsorted up to f32 knife-edge rounding (the two sides of the equivalence round
     differently when n*cdf_i - u0 sits within ~ulp of an integer — more
     likely at n ~ 1e6; either outcome is a valid systematic comb; a
     100-case fuzz at n=128 showed zero mismatches).
@@ -71,11 +71,10 @@ def systematic_resample(key, w, n: int):
 
 
 def _cumsum_1d(x):
-    """1-D inclusive cumsum; for large power-of-two lengths, computed as
-    a 2-D row-cumsum + row-offset broadcast — the straight 1-D
-    `jnp.cumsum` lowers to a ~log(n)-pass shifted-add chain that is
-    latency-bound on TPU (~0.14 ms at n=16384 in the filter-step trace);
-    the [rows, 128]-shaped form does the same work in a few wide passes.
+    """1-D inclusive cumsum; for large lengths that are a multiple of
+    128, computed as a 2-D row-cumsum + row-offset broadcast — a few
+    wide passes instead of the straight 1-D `jnp.cumsum`'s ~log(n)-pass
+    shifted-add chain.
     """
     n = x.shape[0]
     if n < 4096 or n % 128:

@@ -1,18 +1,18 @@
-"""Multi-host bootstrap and hybrid ICI x DCN mesh construction.
+"""Multi-host bootstrap and host-aware mesh construction.
 
 The reference is a single MATLAB process with no distribution story
-(SURVEY §2.4/§5); this module is the TPU-native communication backend
-the framework adds on top: `jax.distributed.initialize` for the
-multi-host runtime (one process per host, GSPMD collectives compiled by
-XLA), plus mesh builders that keep the heavy axis on ICI.
+(SURVEY §2.4/§5); this module is the communication backend the
+framework adds on top: `jax.distributed.initialize` for the multi-host
+runtime (one process per host, GSPMD collectives compiled by XLA), plus
+a mesh builder that keeps the heavy axis inside a host.
 
-Axis-layout rule (the scaling-book recipe): the ``particles`` axis
-carries the resampling gather — the only large cross-device exchange in
-the filter (crossing-particle covariances) — so it must ride ICI within
-a slice; the cheap weight collectives (psum log-sum-exp, O(N) floats)
-can cross DCN. `make_hybrid_mesh` therefore puts hosts (DCN) on the
-OUTER particles dimension: particles are contiguous per host and most
-systematic-resampling crossings stay host-local (sorted ancestor
+Axis-layout rule: the ``particles`` axis carries the resampling gather
+— the only large cross-device exchange in the filter (crossing-particle
+covariances) — so it should stay on the fast intra-host links; the
+cheap weight collectives (psum log-sum-exp, O(N) floats) can cross the
+slower inter-host network. `make_hybrid_mesh` therefore puts hosts on
+the OUTER particles dimension: particles are contiguous per host and
+most systematic-resampling crossings stay host-local (sorted ancestor
 indices travel short distances; see parallel/resampling.py).
 """
 
@@ -30,9 +30,8 @@ def initialize_distributed(coordinator_address: str | None = None,
                            process_id: int | None = None) -> bool:
     """Bootstrap the multi-host runtime (idempotent).
 
-    On managed platforms (GKE/Borg-style TPU pods) `jax.distributed
-    .initialize()` auto-detects everything; otherwise pass the
-    coordinator explicitly or set JAX_COORDINATOR_ADDRESS /
+    On managed clusters `jax.distributed.initialize()` can auto-detect
+    everything; otherwise pass the coordinator explicitly or set JAX_COORDINATOR_ADDRESS /
     JAX_NUM_PROCESSES / JAX_PROCESS_ID. Returns True when a multi-process
     runtime is active after the call, False for the single-process case
     (no-op — every engine works unchanged on one host).
@@ -62,12 +61,12 @@ def initialize_distributed(coordinator_address: str | None = None,
 
 
 def make_hybrid_mesh(n_map_shards: int = 1) -> Mesh:
-    """(particles, map) mesh over ALL processes' devices, DCN-outer.
+    """(particles, map) mesh over ALL processes' devices, hosts outer.
 
     Device order puts each host's local devices contiguous along the
-    particles axis (hosts = outer blocks), so a particle shard's ICI
-    neighbors are on-host/in-slice and only the outermost resampling
-    crossings touch DCN. The ``map`` axis (covariance basis blocks —
+    particles axis (hosts = outer blocks), so a particle shard's
+    neighbors are on-host and only the outermost resampling crossings
+    leave the host. The ``map`` axis (covariance basis blocks —
     per-particle matmul partners, latency-sensitive) is always filled
     with devices from the SAME process.
     """
@@ -80,7 +79,7 @@ def make_hybrid_mesh(n_map_shards: int = 1) -> Mesh:
     if n_map_shards > per_proc or per_proc % n_map_shards:
         raise ValueError(
             f"map={n_map_shards} must divide the {per_proc} per-process "
-            "devices (the map axis must stay on ICI)"
+            "devices (the map axis must stay inside one host)"
         )
     # sort by (process, local order): hosts become outer blocks
     devices = sorted(devices, key=lambda d: (d.process_index, d.id))

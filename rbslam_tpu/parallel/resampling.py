@@ -3,7 +3,7 @@ particle-sharded ensemble (SURVEY §2.4 "distributed resampling").
 
 The reference resamples with per-particle inverse-CDF draws over the
 full weight vector (tools/sample.m:30-33, src/particleFilter.m:104-113)
-— an inherently global operation. The TPU-native split:
+— an inherently global operation. The split used here:
 
 - The *index* computation is cheap: weights are one float per particle,
   ~4 MB at the 1M-particle north star — negligible next to the particle
@@ -12,7 +12,7 @@ full weight vector (tools/sample.m:30-33, src/particleFilter.m:104-113)
 - The *state* exchange is the expensive part. Ancestor indices returned
   here are global; the caller's `jnp.take` on the sharded state tensors
   compiles to a partitioned gather in which only crossing particles
-  (children whose ancestor lives on another shard) move over ICI/DCN.
+  (children whose ancestor lives on another shard) move between devices.
 
 Two index schemes, both running inside `shard_map` with explicit
 collectives (no GSPMD inference):

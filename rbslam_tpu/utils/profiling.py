@@ -16,7 +16,7 @@ import jax
 
 @contextlib.contextmanager
 def phase_annotation(name: str):
-    """Named scope visible in TPU profiler traces."""
+    """Named scope visible in device profiler traces."""
     with jax.profiler.TraceAnnotation(name):
         yield
 

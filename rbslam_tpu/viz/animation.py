@@ -6,7 +6,7 @@ examples/mag-localization-mapping robot-pf.mp4 / loop-pf.mp4;
 examples/slam-sparse-visual/plot_visual_slam_progress.m). That blocks
 the hot loop on the renderer. Here the engines return the per-step
 particle cloud (`xn_hist`) and estimate trajectories from the scan, and
-animation is an OFFLINE pass over saved arrays — the TPU scan never
+animation is an OFFLINE pass over saved arrays — the device scan never
 waits on matplotlib. GIFs via PillowWriter (no ffmpeg dependency).
 """
 

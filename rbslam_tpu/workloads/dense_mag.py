@@ -61,13 +61,11 @@ class DenseMagConfig:
     cov_dtype: str = "float32"
     symmetrize_cov: bool = True
     ancestor_form: str = "woodbury"
-    # filter KF kernel (RBPFConfig.kf_kernel): the "lowrank" Pallas path
-    # is stable at flagship scale in f32 — the factored carry keeps
-    # P_base exactly symmetric by construction (Wt'Wt is an identical
-    # fp accumulation for (i,j) and (j,i)), so the XLA path's
+    # filter KF update (RBPFConfig.kf_kernel): the "lowrank" factored
+    # carry keeps P_base exactly symmetric by construction (Wt'Wt is an
+    # identical fp accumulation for (i,j) and (j,i)), so the XLA path's
     # re-symmetrization pass is structurally unnecessary there
     kf_kernel: str = "xla"
-    pallas_basis: bool = False
 
 
 def build_problem(cfg: DenseMagConfig, key):
@@ -82,8 +80,7 @@ def build_problem(cfg: DenseMagConfig, key):
 
     potential = ScalarPotentialBasis(hypercube_basis(cfg.m_basis, data.LL))
     center = jnp.asarray(domain_center(data.LL), jnp.float32)
-    model = make_mag3d_model(potential, center=center,
-                             use_pallas_basis=cfg.pallas_basis)
+    model = make_mag3d_model(potential, center=center)
     k = linear_plus_se_spectral(
         jnp.asarray(np.sqrt(potential.basis.eigenvalues), jnp.float32),
         cfg.theta[0], cfg.theta[1], cfg.theta[2], 3,
@@ -131,6 +128,12 @@ def run(cfg: DenseMagConfig, _built=None) -> dict:
         ]
         out["filter_s"] = t_f.elapsed
         out["filter_ess_min"] = float(res.ess.min())
+        out["filter_chol_retries"] = int(res.chol_retries)
+        out["filter_nonfinite"] = int(
+            jnp.sum(~jnp.isfinite(res.logw))
+            + jnp.sum(~jnp.isfinite(res.traj_mean))
+            + jnp.sum(~jnp.isfinite(res.xl_mean))
+        )
 
     if cfg.n_sweeps > 0:
         smoother = (
@@ -163,6 +166,10 @@ def run(cfg: DenseMagConfig, _built=None) -> dict:
             for s in range(cfg.n_sweeps)
         ]
         out["smoother_s"] = t_s.elapsed
+        out["smoother_nonfinite"] = int(
+            jnp.sum(~jnp.isfinite(res_s.XNK))
+            + jnp.sum(~jnp.isfinite(res_s.XLK))
+        )
 
     if cfg.run_ekf:
         x0_ekf = jnp.concatenate(
@@ -180,6 +187,7 @@ def run(cfg: DenseMagConfig, _built=None) -> dict:
             aligned_position_rmse(pos_true, res_e.x_traj[:, :3])
         )
         out["ekf_s"] = t_e.elapsed
+        out["ekf_nonfinite"] = int(jnp.sum(~jnp.isfinite(res_e.x_traj)))
 
     return out
 
@@ -281,12 +289,9 @@ def main(argv=None):
                     help="info-form ancestor weights: per-step nl^3 "
                          "factorization vs rank-ny inverse maintenance")
     ap.add_argument("--kf-kernel", default="xla",
-                    choices=["xla", "block_gather", "lowrank"],
-                    help="filter KF update kernel; 'lowrank' (Pallas "
-                         "factored carry) is flagship-stable in f32 and "
+                    choices=["xla", "lowrank"],
+                    help="filter KF update; 'lowrank' (factored carry) "
                          "needs no per-step symmetrization")
-    ap.add_argument("--pallas-basis", action="store_true",
-                    help="fused Pallas basis/Jacobian kernels")
     args = ap.parse_args(argv)
     cfg = DenseMagConfig(
         n_particles=10 if args.quick else args.particles,
@@ -302,7 +307,6 @@ def main(argv=None):
         symmetrize_cov=not args.no_symmetrize,
         ancestor_form=args.ancestor_form,
         kf_kernel=args.kf_kernel,
-        pallas_basis=args.pallas_basis,
     )
     if args.compare:
         report(run_comparison(

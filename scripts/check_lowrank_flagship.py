@@ -1,10 +1,12 @@
-"""Flagship-scale stability check of the lowrank kernel path:
-m=509 (nl=512, 4 lane tiles), f32, T=192, N_P=100 — the accuracy config
+"""Flagship-scale stability check of the lowrank factored-carry path:
+m=509 (nl=512), f32, T=192, N_P=100 — the accuracy config
 VERDICT r4 #1 asks for. Compares against the xla+symmetrize path on the
 same seeds. Run: timeout 3000 python scripts/check_lowrank_flagship.py [nseeds]
 """
+import os
 import sys, time
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 import jax, jax.numpy as jnp, numpy as np
 from rbslam_tpu.utils.cache import enable_compilation_cache
 enable_compilation_cache()

@@ -14,7 +14,8 @@ Run: python scripts/make_aaltoml_fixture.py
 import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 import jax
 
 jax.config.update("jax_platforms", "cpu")
@@ -23,7 +24,7 @@ import numpy as np
 
 from rbslam_tpu.data.fields import draw_scalar_potential_field
 
-OUT = "/root/repo/rbslam_tpu/data/assets/aaltoml_fixture/data/invensense"
+OUT = os.path.join(ROOT, "rbslam_tpu/data/assets/aaltoml_fixture/data/invensense")
 EXTENT = 3.0
 THETA = (10.0, 1.0, 25.0, 0.5)   # resolvable length scale, low noise
 DT = 0.1

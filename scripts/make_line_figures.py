@@ -12,7 +12,8 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +27,7 @@ from rbslam_tpu.workloads.dense_radio import DenseRadioConfig, build_problem
 
 N_MC = int(sys.argv[1]) if len(sys.argv) > 1 else 100
 N_K = int(sys.argv[2]) if len(sys.argv) > 2 else 50
-OUT = "/root/repo/results/figures"
+OUT = os.path.join(ROOT, "results/figures")
 
 cfg = DenseRadioConfig(traj_type="line_3D", n_mc=N_MC, n_sweeps=N_K,
                        with_grid=True)
@@ -151,6 +152,6 @@ summary = {
     "rmse_smoother_median": float(np.median(rs)),
     "wall_s": time.time() - t0,
 }
-with open("/root/repo/results/line_figures_summary.json", "w") as f:
+with open(os.path.join(ROOT, "results/line_figures_summary.json"), "w") as f:
     json.dump(summary, f, indent=1)
 print(json.dumps(summary), flush=True)

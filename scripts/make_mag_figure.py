@@ -6,9 +6,11 @@ grid with per-pixel alpha from the posterior uncertainty
 
 Run (CPU is fine): timeout 2400 python scripts/make_mag_figure.py
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import jax
 

@@ -5,12 +5,12 @@ replicated forms. Prints a memory/step-time table (RESULTS.md).
 
 Run: timeout 1800 python scripts/measure_map_axis.py
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-
-import os
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 flags = os.environ.get("XLA_FLAGS", "")
 if "host_platform_device_count" not in flags:

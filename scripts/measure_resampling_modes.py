@@ -2,17 +2,17 @@
 virtual 8-device CPU mesh (VERDICT r3 ask #6): per-call time of
 replicated_cdf / prefix / local vs N, plus the analytic collective
 payload per call. CPU-mesh times are functional-scaling indicators
-(real ICI collectives are far faster); the payload column is the
+(real device collectives are far faster); the payload column is the
 architecture claim.
 
 Run: timeout 1800 python scripts/measure_resampling_modes.py
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-
-import os
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 flags = os.environ.get("XLA_FLAGS", "")
 if "host_platform_device_count" not in flags:

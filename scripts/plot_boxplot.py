@@ -5,9 +5,11 @@ results/dense_mag_boxplot.json.
 Run: python scripts/plot_boxplot.py
 """
 import json
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import matplotlib
 
@@ -15,7 +17,7 @@ matplotlib.use("Agg")
 import matplotlib.pyplot as plt
 import numpy as np
 
-d = json.load(open("/root/repo/results/dense_mag_boxplot.json"))
+d = json.load(open(os.path.join(ROOT, "results/dense_mag_boxplot.json")))
 raw = d["raw"]
 dists = sorted(raw.keys(), key=float)
 methods = [("ekf", "EKF"), ("pf", "RBPF"), ("ps", "RBPS (info form)")]
@@ -53,6 +55,6 @@ ax.set_title(
 )
 ax.legend(loc="upper left")
 fig.tight_layout()
-out = "/root/repo/results/figures/boxplot-mag.png"
+out = os.path.join(ROOT, "results/figures/boxplot-mag.png")
 fig.savefig(out, dpi=130)
 print("wrote", out)

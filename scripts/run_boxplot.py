@@ -7,10 +7,12 @@ results/dense_mag_boxplot.json.
 Run: timeout 9000 python scripts/run_boxplot.py
 """
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 from rbslam_tpu.utils.cache import enable_compilation_cache
 
@@ -32,7 +34,7 @@ cfg = DenseMagConfig(
 )
 out = run_comparison(cfg, disturbances=(0.0, 1.0, 5.0, 10.0), n_sim=20)
 out["wall_s"] = time.time() - t0
-with open("/root/repo/results/dense_mag_boxplot.json", "w") as f:
+with open(os.path.join(ROOT, "results/dense_mag_boxplot.json"), "w") as f:
     json.dump(out, f, indent=1)
 print(json.dumps(out["rmse_by_disturbance"], indent=1))
 print("wall:", out["wall_s"], flush=True)

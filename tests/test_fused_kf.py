@@ -1,9 +1,7 @@
-"""Pallas KF kernels (block_gather, lowrank) match the XLA path
-(interpret mode on CPU; hardware validation via bench/profile scripts).
-
-Superseded kernel variants (per-particle 1pass/2pass, post-gather block)
-were removed in round 4 — NEGATIVE_RESULTS.md records their numbers.
-"""
+"""The factored-carry KF update (kf_kernel="lowrank") and its gather-CP
+kernel match the XLA path: the plain versions and the Pallas/Triton
+kernel in the interpreter on the CPU, the compiled kernel on the card
+(``gpu`` marker)."""
 
 import jax
 import jax.numpy as jnp
@@ -16,129 +14,170 @@ from rbslam_tpu.ops.kalman import kalman_update_dense_batched
 from test_rbpf import _radio_setup, THETA
 
 
-def _problem(N=16, ny=3, nl=40, seed=0):
-    key = jax.random.PRNGKey(seed)
-    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
-    A = jax.random.normal(k1, (N, nl, nl)) * 0.2
-    P = jnp.einsum("pij,pkj->pik", A, A) + jnp.eye(nl)
-    xl = jax.random.normal(k2, (N, nl))
-    C = jax.random.normal(k3, (N, ny, nl)) * 0.5
-    y = jax.random.normal(k4, (ny,))
-    R = 0.5 * jnp.eye(ny)
-    ai = jax.random.randint(k5, (N,), 0, N)
-    return ai, C, P, xl, y, R
+def _spd_batch(ny, n=64, seed=0):
+    """PD [n, ny, ny] matrices with eigenvalues spread over 1..1e4."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(n, ny, ny)))
+    d = np.geomspace(1.0, 1e4, ny)[None, :] * np.ones((n, 1))
+    return np.einsum("bij,bj,bkj->bik", Q, d, Q).astype(np.float32)
 
 
 @pytest.mark.parametrize("ny", [1, 2, 3])
-def test_spd_inv_logdet_accuracy(ny):
-    """The kernels' scalarized-Cholesky inverse/log-det matches LAPACK on
-    PD inputs across conditioning (the Cayley-Hamilton det formula it
-    replaced lost ~1e-2 of logdet accuracy even at cond ~3 and produced
-    NaN at cond ~1e4 — ADVICE round 3)."""
-    from rbslam_tpu.kernels.kf_update import _spd_inv_logdet
-
-    rng = np.random.default_rng(0)
-    Q, _ = np.linalg.qr(rng.normal(size=(64, ny, ny)))
-    d = np.geomspace(1.0, 1e4, ny)[None, :] * np.ones((64, 1))
-    S = np.einsum("bij,bj,bkj->bik", Q, d, Q).astype(np.float32)
-    Sinv, logdet, bad, Linv = map(
-        np.asarray, _spd_inv_logdet(jnp.asarray(S), ny, 1e-3)
+def test_chol_small_accuracy(ny):
+    """The closed-form small-ny Cholesky and its inverse factor (the
+    whitener of the factored update's new rows, S^-1 = Li' Li) match
+    LAPACK on PD inputs across conditioning."""
+    from rbslam_tpu.ops.kalman import (
+        _chol_small_batched,
+        _Li_from_chol_small_batched,
     )
+
+    S = _spd_batch(ny)
+    L, bad = _chol_small_batched(jnp.asarray(S), 1e-3)
+    Li = _Li_from_chol_small_batched(L)
+    L, bad, Li = map(np.asarray, (L, bad, Li))
     assert not bad.any()
-    ld_ref = np.linalg.slogdet(S.astype(np.float64))[1]
-    np.testing.assert_allclose(logdet[:, 0, 0], ld_ref, atol=5e-3)
-    inv_ref = np.linalg.inv(S.astype(np.float64))
+    S64 = S.astype(np.float64)
     np.testing.assert_allclose(
-        Sinv, inv_ref, atol=5e-3 * np.abs(inv_ref).max()
+        L, np.linalg.cholesky(S64), atol=2e-3 * np.sqrt(1e4)
     )
-    # the whitener the factored update consumes: S^-1 = Linv' Linv
-    if ny == 1:
-        LtL = Linv * Linv
-    else:
-        LtL = np.einsum("bki,bkj->bij", Linv, Linv)
-    np.testing.assert_allclose(LtL, inv_ref, atol=5e-3 * np.abs(inv_ref).max())
+    logdet = 2.0 * np.log(np.diagonal(L, axis1=-2, axis2=-1)).sum(-1)
+    np.testing.assert_allclose(logdet, np.linalg.slogdet(S64)[1], atol=5e-3)
+    inv_ref = np.linalg.inv(S64)
+    np.testing.assert_allclose(
+        np.einsum("bki,bkj->bij", Li, Li), inv_ref,
+        atol=5e-3 * np.abs(inv_ref).max(),
+    )
 
 
 @pytest.mark.parametrize("ny", [1, 2, 3])
-def test_spd_inv_logdet_repairs_indefinite(ny):
-    """Indefinite / zero S: flagged bad, Gershgorin-shifted, and ALWAYS
+def test_chol_small_repairs_indefinite(ny):
+    """Indefinite / zero S: flagged bad, jitter-shifted, and ALWAYS
     finite (a single NaN particle would poison the ensemble logsumexp)."""
-    from rbslam_tpu.kernels.kf_update import _spd_inv_logdet
+    from rbslam_tpu.ops.kalman import (
+        _chol_small_batched,
+        _Li_from_chol_small_batched,
+    )
 
     rng = np.random.default_rng(1)
     A = rng.normal(size=(32, ny, ny)).astype(np.float32)
     S_indef = A @ A.transpose(0, 2, 1) - 5.0 * np.eye(ny, dtype=np.float32)
     for S in (S_indef, np.zeros((8, ny, ny), np.float32)):
-        Sinv, logdet, bad, Linv = map(
-            np.asarray, _spd_inv_logdet(jnp.asarray(S), ny, 1e-3)
-        )
-        assert np.isfinite(Sinv).all()
-        assert np.isfinite(logdet).all()
-        assert np.isfinite(Linv).all()
-        assert bad.any()
+        L, bad = _chol_small_batched(jnp.asarray(S), 1e-3)
+        Li = _Li_from_chol_small_batched(L)
+        assert np.isfinite(np.asarray(L)).all()
+        assert np.isfinite(np.asarray(Li)).all()
+        assert np.asarray(bad).any()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_block_gather_kernel_matches_reference(dtype):
-    """Gather-fused blocked kernel == gather + XLA update (interpret)."""
-    from rbslam_tpu.kernels.kf_update import kf_update_block_gather
+def _factored_problem(N, ny, nl, rw, dtype, seed=0):
+    """Random factored-carry operands in the storage dtype."""
+    ks = jax.random.split(jax.random.PRNGKey(seed), 4)
+    A = jax.random.normal(ks[0], (N, nl, nl)) * 0.2
+    P_base = (jnp.einsum("pij,pkj->pik", A, A) + 2.0 * jnp.eye(nl))
+    Wt = 0.1 * jax.random.normal(ks[1], (N, rw, nl))
+    C = 0.3 * jax.random.normal(ks[2], (N, ny, nl))
+    bidx = jax.random.randint(ks[3], (N,), 0, N)
+    dt = jnp.dtype(dtype)
+    return bidx, C.astype(dt), Wt.astype(dt), P_base.astype(dt)
 
-    ai, C, P, xl, y, R = _problem(nl=128)
-    P = P.astype(jnp.dtype(dtype))
-    Pg = jnp.take(P, ai, axis=0)
-    xlg = jnp.take(xl, ai, axis=0)
-    ref = kalman_update_dense_batched(C, Pg, xlg, y, R, 1e-3)
-    out = kf_update_block_gather(ai, C, xlg, P, y, R)
-    tol = 1e-5 if dtype == "float32" else 5e-2
-    assert out[1].dtype == P.dtype
-    np.testing.assert_allclose(out[0], ref[0], atol=10 * tol)
+
+def _materialized(bidx, C, Wt, P_base):
+    """float64 P_eff = P_base[bidx] - Wt^T Wt and CP = C P_eff."""
+    f64 = lambda a: np.asarray(jnp.asarray(a, jnp.float32), np.float64)
+    Wt64 = f64(Wt)
+    P_eff = f64(P_base)[np.asarray(bidx)] - np.einsum(
+        "pri,prj->pij", Wt64, Wt64
+    )
+    return P_eff, np.einsum("pij,pjk->pik", f64(C), P_eff)
+
+
+_CASES = [(ny, dt) for ny in (1, 2, 3) for dt in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("ny,dtype", _CASES)
+def test_plain_gather_cp_and_rebase(ny, dtype):
+    """The plain gather-CP contraction and rebase (the CPU path and the
+    reference the card's kernel is held to) against the materialized P."""
+    from rbslam_tpu.kernels import gather_cp_reference, kf_rebase
+
+    bidx, C, Wt, P_base = _factored_problem(24, ny, 40, 8 * ny, dtype)
+    P_eff, CP_ref = _materialized(bidx, C, Wt, P_base)
+    CP = np.asarray(jax.jit(gather_cp_reference)(bidx, C, Wt, P_base))
+    assert CP.shape == (24, ny, 40) and CP.dtype == np.float32
+    np.testing.assert_allclose(CP, CP_ref, atol=1e-5 * np.abs(CP_ref).max())
+    P_new = jax.jit(kf_rebase)(bidx, Wt, P_base)   # plain on the CPU
+    assert P_new.dtype == P_base.dtype
+    # the rebased P is rounded once to the storage dtype
+    tol = 1e-6 if dtype == "float32" else 8e-3
     np.testing.assert_allclose(
-        out[1].astype(jnp.float32), ref[1].astype(jnp.float32), atol=tol
+        np.asarray(P_new.astype(jnp.float32)), P_eff,
+        atol=tol * np.abs(P_eff).max(),
     )
-    np.testing.assert_allclose(out[2], ref[2], atol=10 * tol)
 
 
-@pytest.mark.parametrize("ny", [1, 2])
-def test_block_gather_small_ny(ny):
-    from rbslam_tpu.kernels.kf_update import kf_update_block_gather
+@pytest.mark.parametrize(
+    "N,ny,nl,rw,dtype",
+    [(16, ny, 128, 8 * ny, dt) for ny, dt in _CASES]
+    + [(7, 3, 77, 20, "float32")],          # odd N, ragged nl and rw
+)
+def test_gather_cp_kernel_interpret(N, ny, nl, rw, dtype):
+    """The Pallas/Triton gather-CP kernel, run by the Pallas interpreter,
+    matches the materialized-P reference (masks cover ragged nl/rw)."""
+    from rbslam_tpu.kernels.kf_update import gather_cp_pallas
 
-    ai, C, P, xl, y, R = _problem(ny=ny, nl=128)
-    Pg = jnp.take(P, ai, axis=0)
-    xlg = jnp.take(xl, ai, axis=0)
-    ref = kalman_update_dense_batched(C, Pg, xlg, y, R, 1e-3)
-    out = kf_update_block_gather(ai, C, xlg, P, y, R)
-    np.testing.assert_allclose(out[0], ref[0], atol=1e-4)
-    np.testing.assert_allclose(out[1], ref[1], atol=1e-5)
-    np.testing.assert_allclose(out[2], ref[2], atol=1e-4)
+    bidx, C, Wt, P_base = _factored_problem(N, ny, nl, rw, dtype, seed=N)
+    _, CP_ref = _materialized(bidx, C, Wt, P_base)
+    CP = np.asarray(gather_cp_pallas(bidx, C, Wt, P_base, interpret=True))
+    assert CP.shape == (N, ny, nl) and CP.dtype == np.float32
+    np.testing.assert_allclose(CP, CP_ref, atol=1e-5 * np.abs(CP_ref).max())
 
 
-def test_rbpf_block_gather_equivalent():
-    """Full filter run: kf_kernel='block_gather' == XLA path (the kernel
-    pads n_lin up to 128 internally; results identical after unpad)."""
-    data, model, basis, center, k, Q = _radio_setup()
-    base = dict(n_particles=16, resampling="systematic",
-                symmetrize_cov=False)
-    args = (
-        model, data.dx, data.y, data.init_state,
-        jnp.zeros(basis.m), jnp.diag(k), Q,
-        jnp.array([[THETA[2]]]), 1.0,
-    )
-    res_a = run_rbpf(jax.random.PRNGKey(0), *args, RBPFConfig(**base))
-    res_b = run_rbpf(
-        jax.random.PRNGKey(0), *args,
-        RBPFConfig(**base, kf_kernel="block_gather"),
-    )
-    np.testing.assert_allclose(
-        np.asarray(res_a.traj_mean), np.asarray(res_b.traj_mean), atol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(res_a.xl_mean), np.asarray(res_b.xl_mean), atol=1e-3
-    )
+@pytest.mark.parametrize(
+    "N,nl,rw,dtype",
+    [(6, 128, 24, "float32"), (6, 128, 24, "bfloat16"),
+     (5, 77, 3, "float32")],                # odd N, ragged nl and rw
+)
+def test_rebase_kernel_interpret(N, nl, rw, dtype):
+    """The Pallas/Triton rebase kernel, run by the Pallas interpreter,
+    matches the materialized P_base[bidx] - Wt^T Wt, rounded once to the
+    storage dtype."""
+    from rbslam_tpu.kernels.kf_update import rebase_pallas
+
+    bidx, _, Wt, P_base = _factored_problem(N, 3, nl, rw, dtype, seed=N)
+    P_eff, _ = _materialized(bidx, jnp.zeros((N, 1, nl)), Wt, P_base)
+    out = rebase_pallas(bidx, Wt, P_base, interpret=True)
+    assert out.shape == (N, nl, nl) and out.dtype == P_base.dtype
+    tol = 1e-6 if dtype == "float32" else 4e-3
+    np.testing.assert_allclose(np.asarray(out.astype(jnp.float32)), P_eff,
+                               atol=tol * np.abs(P_eff).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nl,dtype", [(128, "bfloat16"), (515, "float32")])
+def test_kernels_on_card(nl, dtype):
+    """The kernels as compiled for the card (gather_cp and kf_rebase lower
+    to Triton on CUDA) against the plain versions at highest precision."""
+    from rbslam_tpu.kernels import kf_update
+
+    bidx, C, Wt, P_base = _factored_problem(256, 3, nl, 24, dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for kernel, reference, args in (
+        (kf_update.gather_cp, kf_update.gather_cp_reference,
+         (bidx, C, Wt, P_base)),
+        (kf_update.kf_rebase, kf_update.rebase_reference,
+         (bidx, Wt, P_base)),
+    ):
+        out = jax.jit(kernel)(*args).astype(jnp.float32)
+        with jax.default_matmul_precision("highest"):
+            ref = jax.jit(reference)(*args).astype(jnp.float32)
+        scale = float(jnp.abs(ref).max())
+        assert float(jnp.abs(out - ref).max()) <= tol * scale
 
 
 def test_kernel_paths_reject_masked_y():
-    """NaN-masked observations must be rejected on kernel paths (they
-    have no mask support and would silently treat NaN as y=0 — ADVICE
+    """NaN-masked observations must be rejected on the factored path (it
+    has no mask support and would silently treat NaN as y=0 — ADVICE
     round 3); the xla path handles the same input via the masked
     update."""
     data, model, basis, center, k, Q = _radio_setup()
@@ -149,13 +188,12 @@ def test_kernel_paths_reject_masked_y():
         jnp.zeros(basis.m), jnp.diag(k), Q,
         jnp.array([[THETA[2]]]), 1.0,
     )
-    for kern in ("block_gather", "lowrank"):
-        with pytest.raises(ValueError, match="NaN"):
-            run_rbpf(
-                jax.random.PRNGKey(0), *args,
-                RBPFConfig(n_particles=8, kf_kernel=kern,
-                           symmetrize_cov=False),
-            )
+    with pytest.raises(ValueError, match="NaN"):
+        run_rbpf(
+            jax.random.PRNGKey(0), *args,
+            RBPFConfig(n_particles=8, kf_kernel="lowrank",
+                       symmetrize_cov=False),
+        )
     # explicit non-trivial mask is rejected too
     mask = jnp.ones_like(data.y).at[2, 0].set(0.0)
     with pytest.raises(ValueError, match="mask"):
@@ -163,7 +201,7 @@ def test_kernel_paths_reject_masked_y():
             jax.random.PRNGKey(0), model, data.dx, data.y,
             data.init_state, jnp.zeros(basis.m), jnp.diag(k), Q,
             jnp.array([[THETA[2]]]), 1.0,
-            RBPFConfig(n_particles=8, kf_kernel="block_gather",
+            RBPFConfig(n_particles=8, kf_kernel="lowrank",
                        symmetrize_cov=False),
             mask=mask,
         )
@@ -183,11 +221,12 @@ def test_unknown_kf_kernel_rejected():
 @pytest.mark.parametrize("ny", [1, 2, 3])
 def test_lowrank_kernel_matches_reference(ny):
     """Factored update (P = P_base - Wt^T Wt) == XLA update on the
-    materialized covariance, and kf_rebase reproduces the XLA P'."""
+    materialized covariance, and kf_rebase reproduces the XLA P'
+    (nl=130: no tile-multiple width is needed)."""
     from rbslam_tpu.kernels.kf_update import kf_rebase, kf_update_lowrank
 
     key = jax.random.PRNGKey(3)
-    N, nl, rw = 32, 128, 8 * ny
+    N, nl, rw = 32, 130, 8 * ny
     ks = jax.random.split(key, 6)
     A = jax.random.normal(ks[0], (N, nl, nl)) * 0.2
     P_base = jnp.einsum("pij,pkj->pik", A, A) + 2.0 * jnp.eye(nl)
@@ -216,7 +255,7 @@ def test_lowrank_kernel_matches_reference(ny):
 
 def test_lowrank_kernel_jitter_retry():
     """A non-PD effective S triggers the same scale-aware jitter repair
-    and bad flag as the other kernels."""
+    and bad flag as the XLA path."""
     from rbslam_tpu.kernels.kf_update import kf_update_lowrank
 
     N, ny, nl, rw = 8, 3, 128, 24
@@ -235,9 +274,9 @@ def test_lowrank_kernel_jitter_retry():
 
 
 def test_rbpf_lowrank_equivalent():
-    """Full filter run: kf_kernel='lowrank' == 'block_gather' (both pad
-    n_lin to 128; the factored path materializes P only at rebases).
-    T=12 spans one full rebase period (r=8) plus a remainder scan."""
+    """Full filter run: kf_kernel='lowrank' == 'xla' (the factored path
+    materializes P only at rebases). T=12 spans one full rebase period
+    (r=8) plus a remainder scan."""
     data, model, basis, center, k, Q = _radio_setup()
     base = dict(n_particles=16, resampling="systematic",
                 symmetrize_cov=False)
@@ -248,7 +287,7 @@ def test_rbpf_lowrank_equivalent():
     )
     res_a = run_rbpf(
         jax.random.PRNGKey(0), *args,
-        RBPFConfig(**base, kf_kernel="block_gather"),
+        RBPFConfig(**base, kf_kernel="xla"),
     )
     res_b = run_rbpf(
         jax.random.PRNGKey(0), *args,
@@ -269,7 +308,7 @@ def test_rbpf_lowrank_ess_adaptive_equivalent():
     """ESS-gated resampling on the factored path (VERDICT r4 #9): with
     ess_threshold < 1 a no-resample step keeps ai = identity (composing
     with the carried base indices) and accumulates log-weights; the run
-    must match the block_gather path step-for-step (same keys, same
+    must match the xla path step-for-step (same keys, same
     resampling decisions) and actually skip some resampling steps."""
     data, model, basis, center, k, Q = _radio_setup()
     base = dict(n_particles=16, resampling="systematic",
@@ -281,7 +320,7 @@ def test_rbpf_lowrank_ess_adaptive_equivalent():
     )
     res_a = run_rbpf(
         jax.random.PRNGKey(0), *args,
-        RBPFConfig(**base, kf_kernel="block_gather"),
+        RBPFConfig(**base, kf_kernel="xla"),
     )
     res_b = run_rbpf(
         jax.random.PRNGKey(0), *args,

@@ -1,55 +1,108 @@
-"""Pallas basis-eval kernels match the jnp reference implementation
-(interpret mode on CPU)."""
+"""The jnp basis and Jacobian evaluation (the path on every platform)
+against an independent NumPy closed form, plus the small-ny Cholesky
+repair."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from rbslam_tpu.basis import hypercube_basis
-from rbslam_tpu.kernels import grad_basis_pallas, phi_basis_pallas
-
-
-def test_phi_kernel_matches_reference():
-    basis = hypercube_basis(50, np.array([2.0, 1.5, 1.0]))
-    x = jax.random.uniform(
-        jax.random.PRNGKey(0), (37, 3), minval=-0.9, maxval=0.9
-    )
-    ref = basis.phi(x)
-    out = phi_basis_pallas(basis, x)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=1e-4, rtol=1e-4)
+from rbslam_tpu.basis import ScalarPotentialBasis, hypercube_basis
 
 
-def test_grad_kernel_matches_reference():
-    basis = hypercube_basis(40, np.array([1.0, 1.0, 0.5]))
-    x = jax.random.uniform(
-        jax.random.PRNGKey(1), (19, 3), minval=-0.4, maxval=0.4
-    )
-    ref = basis.grad_phi(x)          # [N, d, m]
-    out = grad_basis_pallas(basis, x)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=1e-3, rtol=1e-3)
+def _np_phi_grad(x, NN, L):
+    """float64 closed form (tools/domain_cartesian_dx.m:88-93,146-170):
+    phi_n = prod_j L_j^-1/2 sin(w_nj (x_j + L_j)), w_nj = pi n_j / (2 L_j);
+    d phi_n / d x_i swaps sin for w_ni cos in dimension i."""
+    x = np.asarray(x, np.float64)
+    NN = np.asarray(NN, np.float64)
+    L = np.asarray(L, np.float64)
+    w = np.pi * NN / (2.0 * L)                       # [m, d]
+    a = w[None] * (x[:, None, :] + L)                # [N, m, d]
+    scale = np.prod(1.0 / np.sqrt(L))
+    s, c = np.sin(a), np.cos(a)
+    phi = scale * np.prod(s, axis=-1)                # [N, m]
+    d = NN.shape[1]
+    grad = np.stack([
+        scale * w[None, :, i] * c[..., i]
+        * np.prod(np.delete(s, i, axis=-1), axis=-1)
+        for i in range(d)
+    ], axis=1)                                       # [N, d, m]
+    return phi, grad
 
 
-def test_phi_kernel_2d():
-    basis = hypercube_basis(16, np.array([3.0, 3.0]))
-    x = jax.random.uniform(
-        jax.random.PRNGKey(2), (300, 2), minval=-2.5, maxval=2.5
-    )
-    np.testing.assert_allclose(
-        np.asarray(phi_basis_pallas(basis, x)),
-        np.asarray(basis.phi(x)),
-        atol=1e-4, rtol=1e-4,
-    )
+def _np_quat_to_rmat(q):
+    """Scalar-first unit quaternion -> rotation matrix (float64)."""
+    q0, q1, q2, q3 = np.moveaxis(np.asarray(q, np.float64), -1, 0)
+    return np.stack([
+        np.stack([q0**2 + q1**2 - q2**2 - q3**2, 2 * (q1 * q2 - q0 * q3),
+                  2 * (q1 * q3 + q0 * q2)], -1),
+        np.stack([2 * (q1 * q2 + q0 * q3), q0**2 - q1**2 + q2**2 - q3**2,
+                  2 * (q2 * q3 - q0 * q1)], -1),
+        np.stack([2 * (q1 * q3 - q0 * q2), 2 * (q2 * q3 + q0 * q1),
+                  q0**2 - q1**2 - q2**2 + q3**2], -1),
+    ], -2)
+
+
+_BASES = {
+    2: (16, np.array([3.0, 3.0]), 300),
+    3: (50, np.array([2.0, 1.5, 1.0]), 37),
+}
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_phi_matches_numpy(d):
+    m, L, n = _BASES[d]
+    basis = hypercube_basis(m, L)
+    x = jax.random.uniform(jax.random.PRNGKey(d), (n, d),
+                           minval=-0.9 * L, maxval=0.9 * L)
+    ref, _ = _np_phi_grad(x, basis.NN, basis.L)
+    np.testing.assert_allclose(np.asarray(basis.phi(x)), ref,
+                               atol=1e-5 * np.abs(ref).max(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_grad_phi_matches_numpy(d):
+    m, L, n = _BASES[d]
+    basis = hypercube_basis(m, L)
+    x = jax.random.uniform(jax.random.PRNGKey(10 + d), (n, d),
+                           minval=-0.9 * L, maxval=0.9 * L)
+    _, ref = _np_phi_grad(x, basis.NN, basis.L)
+    out = np.asarray(basis.grad_phi(x))
+    assert out.shape == (n, d, m)
+    np.testing.assert_allclose(out, ref, atol=1e-5 * np.abs(ref).max(),
+                               rtol=1e-3)
+
+
+def test_mag3d_batched_jacobian_matches_numpy():
+    """The engines' whole-ensemble Jacobian, vmap(meas_jacobian), equals
+    C = R(q)^T [I3 | grad phi(p - c)] (run_dense3D_magfield.m:265-279)."""
+    from rbslam_tpu.models import make_mag3d_model
+
+    basis = hypercube_basis(61, np.array([2.0, 2.0, 1.0]))
+    center = np.array([0.3, -0.2, 0.1])
+    model = make_mag3d_model(ScalarPotentialBasis(basis),
+                             center=jnp.asarray(center, jnp.float32))
+    kp, kq = jax.random.split(jax.random.PRNGKey(7))
+    n = 37
+    pos = jax.random.uniform(kp, (n, 3), minval=-1.5, maxval=1.5)
+    q = jax.random.normal(kq, (n, 4))
+    q = q / jnp.linalg.norm(q, axis=-1, keepdims=True)
+    xn = jnp.concatenate([pos + jnp.asarray(center, jnp.float32), q], -1)
+
+    C = np.asarray(jax.jit(jax.vmap(model.meas_jacobian))(xn))
+    assert C.shape == (n, 3, 3 + basis.m)
+    _, g = _np_phi_grad(np.asarray(pos), basis.NN, basis.L)
+    C_nav = np.concatenate([np.broadcast_to(np.eye(3), (n, 3, 3)), g], -1)
+    ref = np.einsum("pji,pjk->pik", _np_quat_to_rmat(q), C_nav)
+    np.testing.assert_allclose(C, ref, rtol=1e-4,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 def test_chol_small_scale_aware_jitter():
     """A non-PD innovation at magnetic-field scale (diag ~1e3) must be
     repaired by the retry even though 1e-3 absolute jitter is below one
     bf16 ulp there (the retry scales by the mean diagonal)."""
-    import jax.numpy as jnp
-    import numpy as np
-
     from rbslam_tpu.ops.kalman import _chol_small_batched
 
     # rank-1 (singular) S at scale 1e3, slightly indefinite in bf16
@@ -63,78 +116,3 @@ def test_chol_small_scale_aware_jitter():
     # the repaired factor reproduces S up to the added jitter scale
     rec = L @ jnp.swapaxes(L, -1, -2)
     assert bool(jnp.all(jnp.isfinite(rec)))
-
-
-def test_pallas_basis_cache_survives_multiple_jits():
-    """The per-basis constant cache must hold host arrays, not arrays
-    materialized inside one trace — two different jitted programs using
-    the same basis previously leaked a tracer (UnexpectedTracerError)."""
-    from rbslam_tpu.basis import hypercube_basis
-    from rbslam_tpu.kernels import grad_basis_pallas
-
-    basis = hypercube_basis(16, np.array([2.0, 2.0, 1.0]))
-    x = jax.random.uniform(jax.random.PRNGKey(0), (8, 3), minval=-1,
-                           maxval=1)
-
-    @jax.jit
-    def f1(x):
-        return grad_basis_pallas(basis, x).sum()
-
-    @jax.jit
-    def f2(x):
-        return grad_basis_pallas(basis, x).mean()
-
-    a = float(f1(x))
-    b = float(f2(x))
-    assert np.isfinite(a) and np.isfinite(b)
-
-
-def test_mag3d_jacobian_kernel_matches_reference():
-    """The fully-fused transposed Jacobian kernel == the composed
-    reference assembly R(q)^T [I3 | grad_phi] (run_dense3D_magfield.m:
-    265-279), including the zero pad columns beyond 3 + m."""
-    from rbslam_tpu.kernels import mag3d_jacobian_pallas
-    from rbslam_tpu.math.quaternions import quat_to_rmat
-
-    basis = hypercube_basis(61, np.array([2.0, 2.0, 1.0]))
-    key = jax.random.PRNGKey(7)
-    kp, kq = jax.random.split(key)
-    n = 37
-    pos = jax.random.uniform(kp, (n, 3), minval=-1.5, maxval=1.5)
-    q = jax.random.normal(kq, (n, 4))
-    q = q / jnp.linalg.norm(q, axis=-1, keepdims=True)
-
-    nl_pad = 128
-    Ct = mag3d_jacobian_pallas(basis, pos, q, nl_pad)
-    assert Ct.shape == (3, n, nl_pad)
-
-    g = jax.vmap(basis.grad_phi)(pos)                   # [n, 3, m]
-    eye = jnp.broadcast_to(jnp.eye(3), (n, 3, 3))
-    C_nav = jnp.concatenate([eye, g], axis=-1)          # [n, 3, 3+m]
-    Rnb = quat_to_rmat(q)
-    ref = jnp.einsum("pji,pjk->pik", Rnb, C_nav)        # [n, 3, 3+m]
-
-    np.testing.assert_allclose(
-        np.asarray(Ct[:, :, : 3 + basis.m]),
-        np.asarray(jnp.swapaxes(ref, 0, 1)),
-        rtol=2e-5, atol=2e-5,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(Ct[:, :, 3 + basis.m:]), 0.0
-    )
-
-    # the ROWS-layout variant (the lowrank KF kernel's production input,
-    # emitted directly in the storage dtype) matches element-for-element
-    from rbslam_tpu.kernels.basis_eval import mag3d_jacobian_rows_pallas
-
-    Cr = mag3d_jacobian_rows_pallas(basis, pos, q, nl_pad)
-    assert Cr.shape == (n, 3, nl_pad)
-    np.testing.assert_allclose(
-        np.asarray(Cr), np.asarray(jnp.swapaxes(Ct, 0, 1)),
-        rtol=1e-6, atol=1e-6,
-    )
-    Cr16 = mag3d_jacobian_rows_pallas(basis, pos, q, nl_pad, jnp.bfloat16)
-    np.testing.assert_allclose(
-        np.asarray(Cr16).astype(np.float32), np.asarray(Cr),
-        rtol=8e-3, atol=8e-3 * float(jnp.abs(Cr).max()),
-    )

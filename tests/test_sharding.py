@@ -258,7 +258,7 @@ def test_rbpf_mesh_rejects_pallas_kernels():
     from test_rbpf import THETA, _radio_setup
 
     data, model, basis, center, k, Q = _radio_setup()
-    cfg = RBPFConfig(n_particles=16, kf_kernel="block_gather")
+    cfg = RBPFConfig(n_particles=16, kf_kernel="lowrank")
     mesh = make_mesh(8, 1, devices=jax.devices()[:8])
     with pytest.raises(ValueError, match="single-device"):
         run_rbpf(
@@ -316,7 +316,7 @@ def test_woodbury_rowsharded_matches_unsharded(n_map):
 
 
 def test_hybrid_mesh_single_process():
-    """make_hybrid_mesh on one process: all devices, map on ICI."""
+    """make_hybrid_mesh on one process: all devices, map inside the host."""
     from rbslam_tpu.parallel.distributed import (
         initialize_distributed, make_hybrid_mesh,
     )
