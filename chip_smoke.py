@@ -19,8 +19,9 @@ Phases, each printing one JSON line with its seconds:
 5. dense-radio, sparse-visual and mag-localization at their CLI defaults
    with the bounds their CPU tests assert;
 6. (--four-cards only) the sharded filter and information-form smoother
-   over 4x1 and 2x2 meshes against the single-card run (see
-   :func:`phase_four_cards` for what is exact and at which N_P).
+   over 4x1 and 2x2 meshes against the single-card run: in float32 up to
+   the first differing ancestor, in float64 over the whole run (see
+   :func:`phase_four_cards`).
 
 One process drives the card(s). Any failed gate raises, so the script
 exits non-zero; the last line is the JSON device record only on success.
@@ -204,7 +205,12 @@ def phase_other_workloads():
     _gate(out["pf"]["final_err"] < 1.5, "PF final error < 1.5 m")
 
 
-def _mesh_problem(n_p):
+MESH_SHAPES = ((4, 1), (2, 2))      # (particles, map) mesh axes
+MESH_N_P = (256, 4096)              # float32 filter rows
+EXACT_N_P = 4096                    # float64 filter + smoother rows
+
+
+def _mesh_problem(n_p, dtype):
     import jax
     import jax.numpy as jnp
 
@@ -214,26 +220,16 @@ def _mesh_problem(n_p):
                                    n_per_lap=12)
     data, y, model, potential, _, k, Q, R = dense_mag.build_problem(
         cfg, jax.random.PRNGKey(3))
-    return (model, data.dx, y, data.init_state, jnp.zeros(potential.n_lin),
-            jnp.diag(k), Q, R, cfg.dt)
+    arrays = (data.dx, y, data.init_state, jnp.zeros(potential.n_lin),
+              jnp.diag(k), Q, R)
+    return (model,) + tuple(jnp.asarray(a, dtype) for a in arrays) \
+        + (cfg.dt,)
 
 
-def phase_four_cards(devs):
-    """Sharded engines over real 4x1 and 2x2 meshes vs the single card.
-
-    The sharded run equals the single-card run only as long as every
-    systematic-resampling draw picks the same ancestor. Partitioned
-    reductions (the weight normalization; with a map axis also every
-    contraction over n_lin) round differently, and a comb point that
-    falls within that rounding of a CDF boundary picks another ancestor,
-    after which the runs diverge as Monte Carlo draws do: about one flip
-    per step at N_P=4096, rarely at N_P=256 (also on virtual CPU
-    devices). So every run gates the trajectory up to the first flip
-    (drift < 1e-4) and finite weights, and the 4x1 mesh at N_P=256,
-    where the per-particle math stays on one device, also gets the
-    whole-run checks of __graft_entry__: equal ancestors, filter and
-    smoother trajectory drift < 1e-4, smoother map drift < 1e-3. The
-    per-step count of differing ancestors is printed."""
+def _mesh_rows(devs, n_p, dtype, with_smoother):
+    """Sharded filter (and information-form smoother) on each mesh of
+    ``MESH_SHAPES`` against the single-card run of the same problem and
+    keys; prints one line per mesh and yields its fields."""
     import jax
     import jax.numpy as jnp
 
@@ -245,57 +241,90 @@ def phase_four_cards(devs):
     )
     from rbslam_tpu.parallel import make_mesh
 
+    common = _mesh_problem(n_p, dtype)
+    rb_cfg = RBPFConfig(n_particles=n_p, resampling="systematic")
+    ps_cfg = RBPSConfig(n_particles=n_p, n_sweeps=2)
+    one = run_rbpf(jax.random.PRNGKey(0), *common, rb_cfg)
+    if with_smoother:
+        ps_one = run_rbps_information_form(jax.random.PRNGKey(1), *common,
+                                           ps_cfg)
+    for n_part, n_map in MESH_SHAPES:
+        t0 = time.perf_counter()
+        mesh = make_mesh(n_part, n_map, devices=devs[:4])
+        res = run_rbpf(jax.random.PRNGKey(0), *common, rb_cfg, mesh=mesh)
+        per_step = np.asarray(
+            jnp.sum(res.ancestors != one.ancestors, axis=1))
+        # ancestors[t] resamples into step t + 1
+        first = int(np.argmax(per_step > 0)) if per_step.any() \
+            else len(per_step)
+        fields = dict(
+            dtype=dtype, mesh=[n_part, n_map], N_P=n_p,
+            n_lin=int(common[4].shape[0]), T=int(common[2].shape[0]),
+            ancestors_differing_per_step=per_step,
+            filter_traj_drift_before_first_flip=float(jnp.max(jnp.abs(
+                res.traj_mean[:first + 1] - one.traj_mean[:first + 1]))),
+            filter_traj_drift=float(jnp.max(jnp.abs(
+                res.traj_mean - one.traj_mean))),
+        )
+        finite = bool(jnp.all(jnp.isfinite(res.logw)))
+        if with_smoother:
+            ps = run_rbps_information_form(jax.random.PRNGKey(1), *common,
+                                           ps_cfg, mesh=mesh)
+            fields.update(
+                smoother_traj_drift=float(jnp.max(jnp.abs(
+                    ps.XNK - ps_one.XNK))),
+                smoother_map_drift=float(jnp.max(jnp.abs(
+                    ps.XLK - ps_one.XLK))),
+            )
+            finite &= bool(jnp.all(jnp.isfinite(ps.XNK))
+                           & jnp.all(jnp.isfinite(ps.XLK)))
+        _emit("four_cards", t0, **fields)
+        _gate(finite, f"finite sharded outputs {fields['mesh']} N_P={n_p}")
+        yield fields
+
+
+def phase_four_cards(devs):
+    """Sharded engines over real 4x1 and 2x2 meshes vs the single card.
+
+    A sharded run equals the single-card run only while every resampling
+    draw picks the same ancestor. Partitioned reductions round
+    differently; a comb point within that rounding of a CDF boundary
+    picks another ancestor, and from there the runs differ as two Monte
+    Carlo draws do. In float32 (the program's dtype) that happens about
+    once per step at N_P=4096, on virtual CPU devices too. So:
+
+    - float32 at the default matmul precision: the filter at N_P=256 and
+      4096 is printed in full, and gated on finite outputs and
+      trajectory drift < 1e-4 up to the first differing ancestor;
+    - float64 at the highest matmul precision, where the rounding is far
+      below any CDF gap: filter and information-form smoother at
+      N_P=4096 get the whole-run checks of __graft_entry__ (equal
+      ancestors, filter and smoother trajectory drift < 1e-4, smoother
+      map drift < 1e-3). A fault in the particle or map partitioning
+      fails these at any precision."""
+    import jax
+
     if len(devs) < 4:
         raise SystemExit(f"--four-cards needs 4 GPUs, found {len(devs)}")
-    for n_p in (256, 4096):
-        common = _mesh_problem(n_p)
-        rb_cfg = RBPFConfig(n_particles=n_p, resampling="systematic")
-        ps_cfg = RBPSConfig(n_particles=n_p, n_sweeps=2)
-        one = run_rbpf(jax.random.PRNGKey(0), *common, rb_cfg)
-        if n_p == 256:
-            ps_one = run_rbps_information_form(jax.random.PRNGKey(1),
-                                               *common, ps_cfg)
-        for n_part, n_map in ((4, 1), (2, 2)):
-            t0 = time.perf_counter()
-            mesh = make_mesh(n_part, n_map, devices=devs[:4])
-            res = run_rbpf(jax.random.PRNGKey(0), *common, rb_cfg,
-                           mesh=mesh)
-            per_step = np.asarray(
-                jnp.sum(res.ancestors != one.ancestors, axis=1))
-            # ancestors[t] resamples into step t + 1
-            first = int(np.argmax(per_step > 0)) if per_step.any() \
-                else len(per_step)
-            d_pre = float(jnp.max(jnp.abs(
-                res.traj_mean[:first + 1] - one.traj_mean[:first + 1])))
-            fields = dict(
-                mesh=[n_part, n_map], N_P=n_p, n_lin=int(common[4].shape[0]),
-                T=int(common[2].shape[0]),
-                ancestors_differing_per_step=per_step,
-                filter_traj_drift_before_first_flip=d_pre,
-                filter_traj_drift=float(jnp.max(jnp.abs(
-                    res.traj_mean - one.traj_mean))),
-            )
-            if n_p == 256:
-                ps = run_rbps_information_form(jax.random.PRNGKey(1),
-                                               *common, ps_cfg, mesh=mesh)
-                fields.update(
-                    smoother_traj_drift=float(jnp.max(jnp.abs(
-                        ps.XNK - ps_one.XNK))),
-                    smoother_map_drift=float(jnp.max(jnp.abs(
-                        ps.XLK - ps_one.XLK))),
-                )
-            _emit("four_cards", t0, **fields)
-            _gate(bool(jnp.all(jnp.isfinite(res.logw))), "finite weights")
-            _gate(d_pre < 1e-4, "trajectory drift before the first flip")
-            if n_p == 256 and n_map == 1:
-                _gate(first == len(per_step),
-                      "sharded ancestors equal the single-card run")
-                _gate(fields["filter_traj_drift"] < 1e-4,
-                      "sharded filter trajectory drift < 1e-4")
-                _gate(fields["smoother_traj_drift"] < 1e-4,
-                      "sharded smoother trajectory drift < 1e-4")
-                _gate(fields["smoother_map_drift"] < 1e-3,
-                      "sharded smoother map drift < 1e-3")
+    # every row runs and prints before any gate is read
+    rows = [f for n_p in MESH_N_P
+            for f in _mesh_rows(devs, n_p, "float32", False)]
+    with jax.enable_x64(True), jax.default_matmul_precision("highest"):
+        exact = list(_mesh_rows(devs, EXACT_N_P, "float64", True))
+    for fields in rows:
+        _gate(fields["filter_traj_drift_before_first_flip"] < 1e-4,
+              f"trajectory drift before the first flip {fields['mesh']}"
+              f" N_P={fields['N_P']}")
+    for fields in exact:
+        what = f"{fields['mesh']} N_P={EXACT_N_P} float64"
+        _gate(not fields["ancestors_differing_per_step"].any(),
+              f"sharded ancestors equal the single card {what}")
+        _gate(fields["filter_traj_drift"] < 1e-4,
+              f"sharded filter trajectory drift < 1e-4 {what}")
+        _gate(fields["smoother_traj_drift"] < 1e-4,
+              f"sharded smoother trajectory drift < 1e-4 {what}")
+        _gate(fields["smoother_map_drift"] < 1e-3,
+              f"sharded smoother map drift < 1e-3 {what}")
 
 
 def main(argv=None):

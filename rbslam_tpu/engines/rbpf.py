@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional, Union
 import jax
 import jax.numpy as jnp
 
-from ..math.linalg import ess_from_logw, logsumexp_normalize
+from ..math.linalg import acc_dtype, ess_from_logw, logsumexp_normalize
 from ..models.base import DenseModel, SparseModel
 from ..ops.kalman import (
     kalman_update_dense_batched,
@@ -137,7 +137,7 @@ def reconstruct_trajectories(xn_hist, ancestors):
     step (src/particleFilter.m:117-118).
     """
     T, n_p, _ = xn_hist.shape
-    ident = jnp.arange(n_p)
+    ident = jnp.arange(n_p, dtype=ancestors.dtype)
 
     def back(idx, a_t):
         idx_prev = a_t[idx]
@@ -651,7 +651,7 @@ def _run_rbpf(
     dev = xl_mean[None, :] - xl_f
     P_mean = jnp.einsum(
         "p,pij->ij", w_f.astype(P_f.dtype), P_f,
-        preferred_element_type=jnp.float32,
+        preferred_element_type=acc_dtype(P_f),
     ) + jnp.einsum("p,pi,pj->ij", w_f, dev, dev)
     P_max_out = P_f[iw_max].astype(jnp.float32)
 

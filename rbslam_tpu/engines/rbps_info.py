@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from ..math.linalg import (
+    acc_dtype,
     half_logdet,
     logsumexp_normalize,
     psd_cholesky,
@@ -52,14 +53,14 @@ from .rbps import RBPSConfig, RBPSResult, _dyn_log_weights
 def _info_future_log_weights(ivec, Imat, P, halfLogDetP, ivec_add, Imat_add, jitter):
     """Ancestor measurement weights, information form (:224-236), batched
     over the ensemble (one [N, nl, nl] Cholesky; storage dtypes are
-    promoted to f32 for the factorization)."""
+    promoted to at least f32 for the factorization)."""
     # no symmetrize: cholesky reads only the lower triangle, so the fp
     # asymmetry of the accumulated information pair is irrelevant here
-    Imat_end = Imat.astype(jnp.float32) + Imat_add[None]
+    Imat_end = Imat.astype(acc_dtype(Imat)) + Imat_add[None]
     L, retried = psd_cholesky(Imat_end, jitter)
     v = tril_solve(L, ivec + ivec_add[None])
     Pv = jnp.einsum(
-        "pij,pj->pi", P, ivec, preferred_element_type=jnp.float32
+        "pij,pj->pi", P, ivec, preferred_element_type=acc_dtype(P, ivec)
     )
     quad0 = jnp.sum(ivec * Pv, axis=-1)
     logw = (
@@ -91,9 +92,10 @@ def _woodbury_rank_ny(W, hldM, U, sign: float, jitter):
     )
 
     ny = U.shape[-1]
-    G = jnp.einsum("pij,pjk->pik", W, U, preferred_element_type=jnp.float32)
-    Bpos = jnp.eye(ny, dtype=jnp.float32) + sign * jnp.einsum(
-        "pji,pjk->pik", U, G, preferred_element_type=jnp.float32
+    acc = acc_dtype(W, U)
+    G = jnp.einsum("pij,pjk->pik", W, U, preferred_element_type=acc)
+    Bpos = jnp.eye(ny, dtype=acc) + sign * jnp.einsum(
+        "pji,pjk->pik", U, G, preferred_element_type=acc
     )
     if ny <= 3:
         L, retried = _chol_small_batched(Bpos, jitter)
@@ -117,7 +119,7 @@ def _woodbury_rank_ny(W, hldM, U, sign: float, jitter):
     # with the subtract into one output pass. Compute is ny MACs per
     # element — negligible next to the memory traffic either way.
     corr = sum(
-        GB[..., l][:, :, None] * G[..., l].astype(jnp.float32)[:, None, :]
+        GB[..., l][:, :, None] * G[..., l][:, None, :]
         for l in range(ny)
     )
     W_new = W - (sign * corr).astype(W.dtype)
@@ -130,12 +132,11 @@ def _woodbury_future_log_weights(ivec, W, P, hldp, hldM, ivec_add):
     replaced by (W, hldM) — logw = -1/2 ivec'P ivec - hldp - hldM
     + 1/2 (ivec+ivecAdd)' W (ivec+ivecAdd)."""
     ivec_end = ivec + ivec_add[None]
-    Wv = jnp.einsum(
-        "pij,pj->pi", W, ivec_end, preferred_element_type=jnp.float32
-    )
+    Wv = jnp.einsum("pij,pj->pi", W, ivec_end,
+                    preferred_element_type=acc_dtype(W, ivec_end))
     quadW = jnp.sum(ivec_end * Wv, axis=-1)
     Pv = jnp.einsum(
-        "pij,pj->pi", P, ivec, preferred_element_type=jnp.float32
+        "pij,pj->pi", P, ivec, preferred_element_type=acc_dtype(P, ivec)
     )
     quad0 = jnp.sum(ivec * Pv, axis=-1)
     return -0.5 * quad0 - hldp - hldM + 0.5 * quadW
@@ -159,7 +160,8 @@ def _kf_info_update_batched(C, P, xl, ivec, Imat, hldp, y_t, R, Rinv,
     ivec_new = ivec + jnp.einsum("pil,l->pi", CtRinv, y_t)
     if update_imat:
         dI = jnp.einsum(
-            "pil,plj->pij", CtRinv, C, preferred_element_type=jnp.float32
+            "pil,plj->pij", CtRinv, C,
+            preferred_element_type=acc_dtype(CtRinv, C),
         )
         Imat_new = Imat + dI.astype(Imat.dtype)
     else:

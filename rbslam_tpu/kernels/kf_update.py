@@ -68,6 +68,25 @@ def gather_cp_reference(bidx, C, Wt, P_base):
 
 _ROWS = 16   # rows of the smallest Triton dot operand; rows >= ny masked
 
+# Tile shapes and Triton launch parameters. Each choice came from a
+# 10-point (gather-CP) and 6-point (rebase) sweep on one H100 80GB HBM3
+# at 400 W, at N_P=16384, nl=128, bf16 and at N_P=4096, nl=512, f32: no
+# point was best at both shapes, and these were within 8% of the best at
+# each. Wider tiles cap at the next power of two of nl (>= 16).
+# gather-CP: a [64, 128] P_base tile per pipeline stage. In the sweep
+# 8 warps gained 4% at nl=128 and lost 14% at nl=512; 4 stages or a
+# 128-row K tile lost at both shapes.
+_CP_BLOCK_K = 64
+_CP_BLOCK_N = 128
+_CP_WARPS = 4
+_CP_STAGES = 3
+# rebase: one [128, 128] output tile per program (a rank-rw dot, then
+# one read and one write of the tile). 32- and 64-wide tiles lost at
+# nl=128; 64 wide with 8 warps gained 4% at nl=512 only.
+_REBASE_BLOCK = 128
+_REBASE_WARPS = 4
+_REBASE_STAGES = 2
+
 
 def _gather_cp_kernel(bidx_ref, c_ref, cwt_ref, wt_ref, p_ref, out_ref, *,
                       ny, nl, rw, block_k, block_n):
@@ -111,16 +130,14 @@ def _gather_cp_kernel(bidx_ref, c_ref, cwt_ref, wt_ref, p_ref, out_ref, *,
                    mask=row_ok[:, None] & col_ok[None, :])
 
 
-def gather_cp_pallas(bidx, C, Wt, P_base, *, block_k: int = 64,
-                     block_n: int = 128, num_warps: int = 4,
-                     num_stages: int = 3, **call_kwargs):
+def gather_cp_pallas(bidx, C, Wt, P_base, **call_kwargs):
     """CP through the Pallas/Triton kernel; same contract as
     :func:`gather_cp_reference`. ``call_kwargs`` are passed on to
     ``pl.pallas_call`` (the CPU tests run the kernel in the interpreter)."""
     n, ny, nl = C.shape
     rw = Wt.shape[1]
-    block_n = min(block_n, max(16, pl.next_power_of_2(nl)))
-    block_k = min(block_k, max(16, pl.next_power_of_2(nl)))
+    block_n = min(_CP_BLOCK_N, max(16, pl.next_power_of_2(nl)))
+    block_k = min(_CP_BLOCK_K, max(16, pl.next_power_of_2(nl)))
     kernel = functools.partial(_gather_cp_kernel, ny=ny, nl=nl, rw=rw,
                                block_k=block_k, block_n=block_n)
     return pl.pallas_call(
@@ -128,8 +145,8 @@ def gather_cp_pallas(bidx, C, Wt, P_base, *, block_k: int = 64,
         out_shape=jax.ShapeDtypeStruct((n, ny, nl), jnp.float32),
         grid=(n, pl.cdiv(nl, block_n)),
         backend="triton",
-        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
-                                                num_stages=num_stages),
+        compiler_params=pltriton.CompilerParams(num_warps=_CP_WARPS,
+                                                num_stages=_CP_STAGES),
         name="gather_cp",
         **call_kwargs,
     )(bidx.astype(jnp.int32), C, _factor_projection(C, Wt), Wt, P_base)
@@ -223,20 +240,19 @@ def _rebase_kernel(bidx_ref, wt_ref, p_ref, out_ref, *, nl, rw, block):
                    mask=tile)
 
 
-def rebase_pallas(bidx, Wt, P_base, *, block: int = 128, num_warps: int = 4,
-                  num_stages: int = 2, **call_kwargs):
+def rebase_pallas(bidx, Wt, P_base, **call_kwargs):
     """The rebase through a Pallas/Triton kernel (same contract as
     :func:`rebase_reference`, one rounding to the storage dtype)."""
     n, rw, nl = Wt.shape
-    block = min(block, max(16, pl.next_power_of_2(nl)))
+    block = min(_REBASE_BLOCK, max(16, pl.next_power_of_2(nl)))
     nb = pl.cdiv(nl, block)
     return pl.pallas_call(
         functools.partial(_rebase_kernel, nl=nl, rw=rw, block=block),
         out_shape=jax.ShapeDtypeStruct((n, nl, nl), P_base.dtype),
         grid=(n, nb, nb),
         backend="triton",
-        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
-                                                num_stages=num_stages),
+        compiler_params=pltriton.CompilerParams(num_warps=_REBASE_WARPS,
+                                                num_stages=_REBASE_STAGES),
         name="rebase",
         **call_kwargs,
     )(bidx.astype(jnp.int32), Wt, P_base)

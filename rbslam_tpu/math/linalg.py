@@ -17,6 +17,13 @@ import jax.numpy as jnp
 _LOG2PI = float(jnp.log(2.0 * jnp.pi))
 
 
+def acc_dtype(*arrays):
+    """Accumulation dtype of a contraction over ``arrays``: float32 for
+    bf16 or f32 storage, float64 when an operand is float64 (a GEMM with
+    f64 operands and an f32 result does not lower on the GPU)."""
+    return jnp.promote_types(jnp.result_type(*arrays), jnp.float32)
+
+
 def symmetrize(A):
     """0.5*(A + A^T) over the trailing two axes (as ekf_dense.m:92)."""
     return 0.5 * (A + jnp.swapaxes(A, -1, -2))

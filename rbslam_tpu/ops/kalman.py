@@ -27,6 +27,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ..math.linalg import (
+    acc_dtype,
     gaussian_logpdf_chol,
     psd_cholesky,
     solve_psd,
@@ -247,12 +248,9 @@ def _kalman_update_dense_batched_small(C, P, xl, y, R, jitter, joseph,
     # XLA assign P a transposed {1,2,0} layout while the downdate
     # producer emits {2,1,0} — a full [N, nl, nl] layout-copy pass per
     # step in the info-form smoother trace (scripts/trace_smoother.py)
-    CP = jnp.einsum(
-        "pij,pkj->pik", C, P, preferred_element_type=jnp.float32
-    )
-    S = jnp.einsum(
-        "pik,pjk->pij", CP, C, preferred_element_type=jnp.float32
-    ) + R
+    acc = acc_dtype(C, P)
+    CP = jnp.einsum("pij,pkj->pik", C, P, preferred_element_type=acc)
+    S = jnp.einsum("pik,pjk->pij", CP, C, preferred_element_type=acc) + R
     L, retried = _chol_small_batched(S, jitter)
     v = _tri_solve_small_batched(L, e)
     ny = e.shape[-1]
@@ -266,7 +264,7 @@ def _kalman_update_dense_batched_small(C, P, xl, y, R, jitter, joseph,
         IKC = jnp.eye(n, dtype=cdtype) - K @ C
         P_new = jnp.einsum(
             "pij,pjk,plk->pil", IKC, P.astype(cdtype), IKC,
-            preferred_element_type=jnp.float32,
+            preferred_element_type=acc,
         ) + K @ R @ jnp.swapaxes(K, -1, -2)
     else:
         # P - K S K' == P - (CP)' Sinv (CP); the downdate is computed in
@@ -276,10 +274,8 @@ def _kalman_update_dense_batched_small(C, P, xl, y, R, jitter, joseph,
         # XLA lowers the K=ny matmul as a convolution whose [N, nl, nl]
         # output takes a transposed layout and costs a full layout-copy
         # pass per step (scripts/trace_smoother.py)
-        X = jnp.einsum(
-            "pij,pjk->pik", Sinv, CP, preferred_element_type=jnp.float32
-        )
-        CPf = CP.astype(jnp.float32)
+        X = jnp.einsum("pij,pjk->pik", Sinv, CP, preferred_element_type=acc)
+        CPf = CP.astype(acc)
         downdate = sum(
             CPf[:, j][:, :, None] * X[:, j][:, None, :]
             for j in range(e.shape[-1])
@@ -293,15 +289,12 @@ def _kalman_update_dense_batched_small(C, P, xl, y, R, jitter, joseph,
 def _kalman_update_dense_batched_lax(C, P, xl, y, R, jitter, joseph,
                                      symmetrize_out=True):
     # P may arrive in a reduced-precision storage dtype (bf16 covariance
-    # carry); all contractions accumulate in f32
+    # carry); all contractions accumulate in at least f32
     cdtype = C.dtype
     e = y[None, :] - jnp.einsum("pij,pj->pi", C, xl)
-    CP = jnp.einsum(
-        "pij,pjk->pik", C, P, preferred_element_type=jnp.float32
-    )
-    S = jnp.einsum(
-        "pik,pjk->pij", CP, C, preferred_element_type=jnp.float32
-    ) + R
+    acc = acc_dtype(C, P)
+    CP = jnp.einsum("pij,pjk->pik", C, P, preferred_element_type=acc)
+    S = jnp.einsum("pik,pjk->pij", CP, C, preferred_element_type=acc) + R
     L, retried = psd_cholesky(S, jitter)
     logw = gaussian_logpdf_chol(e, L)
     hld = jnp.sum(jnp.log(jnp.diagonal(L, axis1=-2, axis2=-1)), axis=-1)
@@ -312,12 +305,12 @@ def _kalman_update_dense_batched_lax(C, P, xl, y, R, jitter, joseph,
         IKC = jnp.eye(n, dtype=cdtype) - K @ C
         P_new = jnp.einsum(
             "pij,pjk,plk->pil", IKC, P.astype(cdtype), IKC,
-            preferred_element_type=jnp.float32,
+            preferred_element_type=acc,
         ) + K @ R @ jnp.swapaxes(K, -1, -2)
     else:
         downdate = jnp.einsum(
             "pij,pjk,plk->pil", K, S, K,
-            preferred_element_type=jnp.float32,
+            preferred_element_type=acc,
         )
         P_new = P - downdate.astype(P.dtype)
     if symmetrize_out:

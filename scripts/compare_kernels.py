@@ -1,54 +1,41 @@
-"""Decide the hand-written kernels on one GPU: the dense-mag
-factored-carry filter with each Pallas/Triton kernel (gather-CP, rebase)
-against the same filter with the plain jnp version, end to end.
+"""Time the hand-written kernels on one GPU against their plain versions.
 
-    python scripts/compare_kernels.py [--repeats 3] [--sweep]
+    python scripts/compare_kernels.py [--repeats 3]
 
 Cells: the bench flagship (N_P=16384, m=125+3, bf16 carry) and the
-reference-scale filter (N_P=4096, m=509+3, f32), T=192, kf_kernel=
-"lowrank". Each cell's filter is compiled once per ``VARIANTS`` entry
-(all plain, all kernels, and each kernel left out in turn — a plain
-entry has the module's dispatch replaced by the plain function) and the
-executables are timed in turns, forward then backward. Also timed alone
-at each cell's shape: each op both ways and the batched measurement
-Jacobian.
-``--sweep`` adds block-size sweeps of the kernels. One JSON line per
-measurement, each with the card's name and power limit; GPU only.
+reference-scale filter (N_P=4096, m=509+3, f32), T=192. In each cell:
+
+- end to end: the dense-mag filter with ``kf_kernel="lowrank"`` (the
+  factored carry, which runs the kernels) and with ``kf_kernel="xla"``
+  (full covariance, plain XLA), each compiled once and timed in turns;
+- alone, at the cell's shape: each Pallas/Triton kernel
+  (``gather_cp_pallas``, ``rebase_pallas``) against its plain jnp
+  reference (``gather_cp_reference``, ``rebase_reference``), and the
+  batched measurement Jacobian.
+
+One JSON line per measurement, each with the card's name and power
+limit. Needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
-from unittest import mock
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-SWEEP_CP = [  # gather-CP: (block_k, block_n, num_warps, num_stages)
-    (32, 128, 4, 3), (64, 128, 4, 3), (128, 128, 4, 3), (64, 64, 4, 3),
-    (128, 64, 4, 3), (64, 128, 8, 3), (128, 128, 8, 3), (64, 128, 4, 4),
-    (128, 128, 4, 2), (64, 256, 8, 3),
-]
-SWEEP_REBASE = [  # rebase: (block, num_warps, num_stages)
-    (32, 4, 2), (64, 4, 2), (64, 8, 2), (128, 4, 2), (128, 8, 2),
-    (64, 4, 3),
-]
-VARIANTS = {  # name: (plain gather-CP, plain rebase)
-    "plain": (True, True), "all_kernels": (False, False),
-    "no_gather_cp": (True, False), "no_rebase": (False, True),
-}
 CELLS = [  # (name, N_P, m, storage dtype)
     ("flagship", 16384, 125, "bfloat16"),
     ("refscale", 4096, 509, "float32"),
 ]
+KF_KERNELS = ("lowrank", "xla")
 
 
 def _card():
@@ -71,40 +58,30 @@ def _median_time(fn, *args, repeats=20):
     return float(np.median(ts))
 
 
-def _compile_filter(cell, variant):
+def _compile_filter(cell, kf_kernel):
     import jax
     import jax.numpy as jnp
 
     from rbslam_tpu.engines import RBPFConfig
     from rbslam_tpu.engines.rbpf import _run_rbpf
-    from rbslam_tpu.kernels import kf_update
     from rbslam_tpu.workloads import dense_mag
 
     _, n_p, m, dtype = cell
     cfg = dense_mag.DenseMagConfig(n_particles=n_p, m_basis=m,
-                                   cov_dtype=dtype, kf_kernel="lowrank")
+                                   cov_dtype=dtype, kf_kernel=kf_kernel)
     k_data = jax.random.split(jax.random.PRNGKey(cfg.seed), 4)[1]
     data, y, model, potential, _, k, Q, R = dense_mag.build_problem(
         cfg, k_data)
     rb = RBPFConfig(n_particles=n_p, resampling=cfg.resampling,
-                    cov_dtype=dtype, kf_kernel="lowrank")
+                    cov_dtype=dtype, kf_kernel=kf_kernel)
 
     def fn(key):   # the jitted engine body (run_rbpf adds eager checks)
         return _run_rbpf(key, model, data.dx, y, data.init_state,
                         jnp.zeros(potential.n_lin), jnp.diag(k), Q, R,
                         cfg.dt, rb)
 
-    plain_cp, plain_rebase = VARIANTS[variant]
-    jax.clear_caches()
     t0 = time.perf_counter()
-    with contextlib.ExitStack() as stack:
-        if plain_cp:
-            stack.enter_context(mock.patch.object(
-                kf_update, "gather_cp", kf_update.gather_cp_reference))
-        if plain_rebase:
-            stack.enter_context(mock.patch.object(
-                kf_update, "kf_rebase", kf_update.rebase_reference))
-        compiled = jax.jit(fn).lower(jax.random.PRNGKey(0)).compile()
+    compiled = jax.jit(fn).lower(jax.random.PRNGKey(0)).compile()
     return (compiled, time.perf_counter() - t0, int(y.shape[0]),
             (model, data))
 
@@ -113,11 +90,10 @@ def end_to_end(card, cell, repeats):
     import jax
 
     exe, compile_s = {}, {}
-    for name in VARIANTS:
+    for name in KF_KERNELS:
         exe[name], compile_s[name], T, built = _compile_filter(cell, name)
-    names = list(VARIANTS)
-    order = (names + names[::-1]) * repeats
-    times = {name: [] for name in names}
+    order = (list(KF_KERNELS) + list(KF_KERNELS)[::-1]) * repeats
+    times = {name: [] for name in KF_KERNELS}
     for i, name in enumerate(order):
         t0 = time.perf_counter()
         jax.block_until_ready(exe[name](jax.random.PRNGKey(i)))
@@ -135,13 +111,13 @@ def end_to_end(card, cell, repeats):
     return out, built
 
 
-def ops_alone(card, cell, step_ms, built, sweep):
+def ops_alone(card, cell, step_ms, built):
     import jax
     import jax.numpy as jnp
 
-    from rbslam_tpu.kernels import gather_cp, gather_cp_reference, kf_rebase
     from rbslam_tpu.kernels.kf_update import (
         gather_cp_pallas,
+        gather_cp_reference,
         rebase_pallas,
         rebase_reference,
     )
@@ -155,14 +131,15 @@ def ops_alone(card, cell, step_ms, built, sweep):
     C = (0.3 * jax.random.normal(ks[1], (n, ny, nl))).astype(dt)
     Wt = (0.1 * jax.random.normal(ks[2], (n, rw, nl))).astype(dt)
     bidx = jnp.sort(jax.random.randint(ks[3], (n,), 0, n))
+    cp_args, rebase_args = (bidx, C, Wt, P_base), (bidx, Wt, P_base)
     rows = {
-        "gather_cp_kernel": _median_time(jax.jit(gather_cp), bidx, C, Wt,
-                                         P_base),
-        "gather_cp_plain": _median_time(jax.jit(gather_cp_reference), bidx,
-                                        C, Wt, P_base),
-        "rebase_kernel": _median_time(jax.jit(kf_rebase), bidx, Wt, P_base),
-        "rebase_plain": _median_time(jax.jit(rebase_reference), bidx, Wt,
-                                     P_base),
+        "gather_cp_kernel": _median_time(jax.jit(gather_cp_pallas),
+                                         *cp_args),
+        "gather_cp_plain": _median_time(jax.jit(gather_cp_reference),
+                                        *cp_args),
+        "rebase_kernel": _median_time(jax.jit(rebase_pallas), *rebase_args),
+        "rebase_plain": _median_time(jax.jit(rebase_reference),
+                                     *rebase_args),
     }
     xn = jnp.broadcast_to(data.init_state, (n, 7)) \
         + 0.1 * jax.random.normal(ks[4], (n, 7))
@@ -176,31 +153,9 @@ def ops_alone(card, cell, step_ms, built, sweep):
             op.split("_")[0])
         print(json.dumps({
             "what": "op_alone", "cell": name, "op": op, "median_ms": 1e3 * s,
-            "share_of_step": 1e3 * s / step_ms,
+            "share_of_lowrank_step": 1e3 * s / step_ms,
             "min_bytes_GB_per_s": floor / s / 1e9 if floor else None,
             "card": card}), flush=True)
-    if sweep:
-        for bk, bn, warps, stages in SWEEP_CP:
-            f = jax.jit(lambda *a, bk=bk, bn=bn, w=warps, st=stages:
-                        gather_cp_pallas(*a, block_k=bk, block_n=bn,
-                                         num_warps=w, num_stages=st))
-            s = _median_time(f, bidx, C, Wt, P_base, repeats=10)
-            print(json.dumps({
-                "what": "sweep_gather_cp", "cell": name, "block_k": bk,
-                "block_n": bn, "num_warps": warps, "num_stages": stages,
-                "median_ms": 1e3 * s, "min_bytes_GB_per_s": p_bytes / s / 1e9,
-                "card": card}), flush=True)
-        for blk, warps, stages in SWEEP_REBASE:
-            f = jax.jit(lambda *a, blk=blk, w=warps, st=stages:
-                        rebase_pallas(*a, block=blk, num_warps=w,
-                                      num_stages=st))
-            s = _median_time(f, bidx, Wt, P_base, repeats=10)
-            print(json.dumps({
-                "what": "sweep_rebase", "cell": name, "block": blk,
-                "num_warps": warps, "num_stages": stages,
-                "median_ms": 1e3 * s,
-                "min_bytes_GB_per_s": 2 * p_bytes / s / 1e9,
-                "card": card}), flush=True)
 
 
 def main():
@@ -208,7 +163,6 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=3)
-    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     if jax.devices()[0].platform != "gpu":
         raise SystemExit("needs a GPU")
@@ -219,8 +173,7 @@ def main():
     print(card, flush=True)
     for cell in CELLS:
         e2e, built = end_to_end(card, cell, args.repeats)
-        ops_alone(card, cell, e2e["all_kernels"]["step_ms"], built,
-                  args.sweep)
+        ops_alone(card, cell, e2e["lowrank"]["step_ms"], built)
 
 
 if __name__ == "__main__":

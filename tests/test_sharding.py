@@ -99,6 +99,49 @@ def test_sharded_info_smoother_matches_single_device(mesh_shape):
     )
 
 
+def test_sharded_engines_float64_match_single_device():
+    """In float64 the sharded filter and information-form smoother keep
+    every ancestor of the unsharded run and differ only by f64 rounding:
+    every contraction accumulates in f64 then (an f64 x f64 -> f32 GEMM
+    does not lower on the GPU, and f32 partial sums would flip draws)."""
+    from rbslam_tpu.engines import (
+        RBPFConfig,
+        RBPSConfig,
+        run_rbpf,
+        run_rbps_information_form,
+    )
+    from test_rbpf import THETA, _radio_setup
+
+    with jax.enable_x64(True):
+        data, model, basis, center, k, Q = _radio_setup()
+        arrays = tuple(jnp.asarray(a, jnp.float64) for a in (
+            data.dx, data.y, data.init_state, jnp.zeros(basis.m),
+            jnp.diag(k), Q, jnp.array([[THETA[2]]])))
+        mesh = make_mesh(4, 2, devices=jax.devices()[:8])
+        cfg = RBPFConfig(n_particles=16, resampling="systematic")
+        r1 = run_rbpf(jax.random.PRNGKey(0), model, *arrays, 1.0, cfg)
+        r2 = run_rbpf(jax.random.PRNGKey(0), model, *arrays, 1.0, cfg,
+                      mesh=mesh)
+        ps_cfg = RBPSConfig(n_particles=16, n_sweeps=2)
+        p1 = run_rbps_information_form(jax.random.PRNGKey(3), model,
+                                       *arrays, 1.0, ps_cfg)
+        p2 = run_rbps_information_form(jax.random.PRNGKey(3), model,
+                                       *arrays, 1.0, ps_cfg, mesh=mesh)
+    assert r1.traj_mean.dtype == p1.XLK.dtype == jnp.float64
+    np.testing.assert_array_equal(
+        np.asarray(r2.ancestors), np.asarray(r1.ancestors)
+    )
+    np.testing.assert_allclose(
+        np.asarray(r2.traj_mean), np.asarray(r1.traj_mean), atol=1e-10
+    )
+    np.testing.assert_allclose(
+        np.asarray(p2.XNK), np.asarray(p1.XNK), atol=1e-10
+    )
+    np.testing.assert_allclose(
+        np.asarray(p2.XLK), np.asarray(p1.XLK), atol=1e-8
+    )
+
+
 @pytest.mark.parametrize("scheme", ["systematic", "stratified", "multinomial"])
 @pytest.mark.parametrize("mode", ["replicated_cdf", "prefix"])
 def test_sharded_resampler_matches_single_device(scheme, mode):
